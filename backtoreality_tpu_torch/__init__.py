@@ -8,13 +8,15 @@ or of the JAX package.
 
 Subpackages
 -----------
-ops       Point-cloud ops (FPS, stratified ball query with CUDA kernels;
-          grouping, 3-NN interpolation in plain PyTorch).
+ops       Point-cloud ops (FPS, stratified ball query and stratified
+          grouping with CUDA kernels; gathers, 3-NN interpolation and
+          chamfer distance in plain PyTorch).
 nn        PointNet++ layers (SharedMLP, BatchNorm, SA/FP modules).
 models    The VoteNet detector.
+losses    The VoteNet FSB criterion.
 data      Dataset configs, detection datasets, host loaders (numpy).
 eval      Box geometry, NMS, AP evaluation (host-side numpy).
-train     The evaluation entry point.
+train     The evaluation and VoteNet FSB training entry points.
 bridge    JAX variables -> the port's state_dict.
 """
 

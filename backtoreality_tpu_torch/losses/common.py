@@ -1,0 +1,55 @@
+"""Shared loss primitives.
+
+Counterpart of ``backtoreality_tpu/losses/common.py``, with the same
+float32 casts (class weights, masks, one-hot), so that a float64 run
+matches the JAX package's x64 run to rounding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def masked_mean(x, mask, eps: float = 1e-6):
+    """sum(x*mask)/(sum(mask)+eps) — the reference's pervasive reduction."""
+    mask = mask.to(torch.float32)
+    return torch.sum(x * mask) / (torch.sum(mask) + eps)
+
+
+def softmax_ce(logits, labels, class_weights=None):
+    """Per-element cross entropy (torch CrossEntropyLoss reduction='none').
+
+    logits (..., C); labels (...) int. With class_weights (C,), each
+    element's loss is scaled by the weight of its true class.
+    """
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = labels.long()
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    if class_weights is not None:
+        # non_blocking: a host constant needs no stream sync
+        w = torch.as_tensor(class_weights, dtype=torch.float32).to(
+            logits.device, non_blocking=True)[labels]
+        nll = nll * w
+    return nll
+
+
+def sigmoid_bce_with_logits(logits, targets):
+    """Numerically-stable BCE-with-logits (tf/torch formulation)."""
+    return (torch.clamp(logits, min=0.0) - logits * targets
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def softmax_focal_loss(logits, labels, gamma: float = 2.0,
+                       eps: float = 1e-12):
+    """Reference `FocalLoss` softmax branch with alpha=1
+    (`loss_helper.py:467-546`): -(1-p)^gamma log p, mean-reduced."""
+    p = torch.softmax(logits, dim=-1)
+    pt = torch.gather(p, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(-((1.0 - pt) ** gamma) * torch.log(pt + eps))
+
+
+def one_hot_f32(labels, num: int):
+    """float32 one-hot; labels outside [0, num) give a zero row."""
+    labels = labels.long()
+    classes = torch.arange(num, device=labels.device)
+    return (labels[..., None] == classes).to(torch.float32)

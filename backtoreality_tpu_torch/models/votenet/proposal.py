@@ -2,8 +2,9 @@
 
 Counterpart of ``backtoreality_tpu/models/votenet/proposal.py``
 (reference `proposal_module.py:18-120`): an SA layer clusters votes
-around `num_proposal` centres sampled by FPS on the votes (``vote_fps``;
-``seed_fps`` and ``random`` are not ported); a pointwise head emits
+around `num_proposal` centres sampled by FPS on the votes (``vote_fps``)
+or on the seeds (``seed_fps``; ``random`` is not ported); a pointwise
+head emits
 2 objectness + 3 centre-offset + 2*NH heading + 4*NS size + num_class
 semantic logits, decoded into the end_points dict in f32.
 """
@@ -15,6 +16,7 @@ import math
 import numpy as np
 import torch
 
+from backtoreality_tpu_torch import ops
 from backtoreality_tpu_torch.nn import PointwiseMLP, SAModuleVotes
 
 
@@ -62,8 +64,10 @@ class ProposalModule(PointwiseMLP):
                    + num_class)
         # no bias before BN (see voting.py)
         super().__init__(128, [128, 128], out_dim)
-        if sampling != "vote_fps":
+        if sampling not in ("vote_fps", "seed_fps"):
             raise NotImplementedError(f"sampling {sampling!r} is not ported")
+        self.num_proposal = num_proposal
+        self.sampling = sampling
         self.num_class = num_class
         self.num_heading_bin = num_heading_bin
         self.num_size_cluster = num_size_cluster
@@ -75,8 +79,14 @@ class ProposalModule(PointwiseMLP):
 
     def forward(self, xyz, features, end_points):
         """xyz: vote positions (B, num_vote, 3); features (B, num_vote, C)."""
-        new_xyz, new_features, sample_inds = self.vote_aggregation(
-            xyz, features)
+        if self.sampling == "vote_fps":
+            new_xyz, new_features, sample_inds = self.vote_aggregation(
+                xyz, features)
+        else:  # seed_fps: the centres are the FPS of the seeds
+            sample_inds = ops.furthest_point_sample(end_points["seed_xyz"],
+                                                    self.num_proposal)
+            new_xyz, new_features, _ = self.vote_aggregation(
+                xyz, features, sample_inds)
         end_points["aggregated_vote_xyz"] = new_xyz
         end_points["aggregated_vote_features"] = new_features
         end_points["aggregated_vote_inds"] = sample_inds
@@ -84,7 +94,9 @@ class ProposalModule(PointwiseMLP):
         net = super().forward(new_features)
         # decode in f32 (or f64 under the x64 parity tests)
         dt = torch.float64 if net.dtype == torch.float64 else torch.float32
-        msa = torch.as_tensor(self.mean_size_arr, dtype=dt, device=net.device)
+        # non_blocking: a host constant needs no stream sync
+        msa = torch.as_tensor(self.mean_size_arr, dtype=dt).to(
+            net.device, non_blocking=True)
         return decode_scores(net.to(dt), end_points, self.num_class,
                              self.num_heading_bin, self.num_size_cluster,
                              msa)

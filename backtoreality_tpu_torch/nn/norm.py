@@ -7,14 +7,33 @@ running statistics updated as
 
     running = (1 - momentum) * running + momentum * batch_stat
 
-with the unbiased batch variance. ``bn_momentum_schedule`` comes with the
-training slice.
+with the unbiased batch variance. The momentum is rounded to float32 and
+``1 - momentum`` taken in float32, as the JAX package does with its
+call-time ``bn_momentum``; :func:`set_bn_momentum` sets it on every
+BatchNorm of a model before a step, and :func:`bn_momentum_schedule` is
+the reference's epoch schedule.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
+
+
+def bn_momentum_schedule(epoch: int, init: float = 0.5,
+                         decay_step: int = 20, decay_rate: float = 0.5,
+                         floor: float = 0.001) -> float:
+    """Reference BN momentum schedule (`train_Votenet_FSB.py:91-95`)."""
+    return max(init * decay_rate ** (epoch // decay_step), floor)
+
+
+def set_bn_momentum(model: nn.Module, momentum: float):
+    """Set the running-statistics momentum of every BatchNorm in
+    `model` (the JAX package passes it to each train-mode call)."""
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.momentum = momentum
 
 
 class BatchNorm(nn.Module):
@@ -43,12 +62,13 @@ class BatchNorm(nn.Module):
             var = torch.clamp(mean2 - mean * mean, min=0.0)
             count = xf.numel() // self.features
             unbiased = var * (count / max(count - 1, 1))
+            m = np.float32(self.momentum)
+            keep = float(np.float32(1) - m)
+            m = float(m)
             with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(
-                    (1 - m) * self.running_mean + m * mean)
-                self.running_var.copy_(
-                    (1 - m) * self.running_var + m * unbiased)
+                self.running_mean.copy_(keep * self.running_mean + m * mean)
+                self.running_var.copy_(keep * self.running_var
+                                       + m * unbiased)
         else:
             mean, var = self.running_mean.to(ct), self.running_var.to(ct)
         inv = torch.rsqrt(var + self.eps) * self.weight.to(ct)

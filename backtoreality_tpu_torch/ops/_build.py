@@ -42,6 +42,8 @@ class Kernel:
     types (every function returns an int, a ``cudaError_t``).
     ``launches`` counts the kernel launches made through the op's
     wrapper; the wrapper adds one per launch and nothing else does.
+    ``backward_launches`` counts the same for the op's backward, where
+    the source has one.
     """
 
     def __init__(self, name: str, source: str, replaces: str,
@@ -51,6 +53,7 @@ class Kernel:
         self.replaces = replaces
         self.signatures = signatures
         self.launches = 0
+        self.backward_launches = 0
         self._lib = None
 
     def library_path(self) -> pathlib.Path:

@@ -1,1 +1,1 @@
-"""Entry points of the port (evaluation; training comes later)."""
+"""Entry points of the port: evaluation and VoteNet FSB training."""

@@ -8,7 +8,9 @@ the requested IoU thresholds. It runs on the CUDA card unless
 was not asked for.
 
 Checkpoints are ``torch.save`` files of the port's ``state_dict``
-(``bridge.state_dict_from_jax`` converts the JAX package's variables).
+(``bridge.state_dict_from_jax`` converts the JAX package's variables),
+or the training checkpoints of ``train/votenet.py``
+(``{"epoch", "model", "optimizer"}``), whose ``"model"`` entry is read.
 Not ported yet: BN recalibration, ``--eval_seeds > 1``, the ``da`` and
 ``da_jitter`` kinds, GroupFree3D and ``--bf16``.
 
@@ -59,7 +61,7 @@ def add_common_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--num_target", type=int, default=256)
     parser.add_argument("--vote_factor", type=int, default=1)
     parser.add_argument("--cluster_sampling", default="vote_fps",
-                        choices=["vote_fps"])
+                        choices=["vote_fps", "seed_fps"])
     parser.add_argument("--ap_iou_thresh", type=float, default=0.25)
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--no_height", action="store_true")
@@ -133,6 +135,8 @@ def main(argv=None):
     model = build_model(flags, cfg)
     state = torch.load(flags.checkpoint_path, map_location="cpu",
                        weights_only=True)
+    if "model" in state:  # a training checkpoint
+        state = state["model"]
     model.load_state_dict(state)
     model.to(device).eval()
     print(f"loaded checkpoint {flags.checkpoint_path}")

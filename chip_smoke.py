@@ -5,22 +5,36 @@
 
 Phases, in order; any failure exits nonzero and nothing is swallowed:
 
-1. Build every CUDA kernel of the serving path (``nvcc``, all sources
-   at once) into ``build/kernels/``.
+1. Build every CUDA kernel (``nvcc``, one process per source, all started
+   together) into ``build/kernels/``.
 2. Run the VoteNet forward once (B=8, N=40000, height feature, random
    seeded weights) on a synthetic batch to obtain the inputs each kernel
-   gets on the main path, then hold each kernel against its plain
+   gets on the main paths, then hold each kernel against its plain
    PyTorch version on the card at those inputs: FPS bit-exact (plus a
    padded tail, an all-padding row and ``candidates=8192``), stratified
    ball query exact except at points within rounding error of the
-   radius. Kernel and plain times are medians of CUDA events.
-3. Reset the launch counters, run the port's evaluation entry point
-   (``backtoreality_tpu_torch.train.evaluate.main``) over 16 synthetic
-   scans at B=8, N=40000 on ``cuda``, check that each kernel was
-   launched 5 times per batch and that the mAP numbers are finite, time
-   the forward per batch, and print its device time by kernel
-   (``torch.profiler``).
-4. Print the card's name and power limit, one JSON line with every
+   radius, stratified grouping forward bit-exact and its backward within
+   1e-5 (relative to the largest gradient) of the plain backward in
+   float64 and bitwise equal over two runs. Kernel, plain and library
+   times are medians of CUDA events, with the host's launches queued
+   ahead of the device so that they time device work.
+3. Serving path: reset the launch counters, run the evaluation entry
+   point (``backtoreality_tpu_torch.train.evaluate.main``) over 16
+   synthetic scans at B=8, N=40000 on ``cuda``, check that FPS, ball
+   query and grouping each launched 5 times per batch and that the mAP
+   numbers are finite, time the forward per batch, and print its device
+   time by kernel (``torch.profiler``).
+4. Training path: reset the counters, run the FSB entry point
+   (``backtoreality_tpu_torch.train.votenet_fsb.main``) for 2 epochs
+   over the 16 scans at B=8, N=40000, ``--fps_candidates 8192`` (4 steps
+   and one evaluation); check finite losses, the launch counts (5 per
+   forward for FPS, ball query and grouping; 4 grouping backwards per
+   step) and that ``evaluate.main`` loads the checkpoint. Then time the
+   train step at ``bench.py``'s configuration (a fixed batch, Adam at lr
+   1e-3, BN momentum 0.5), print its device time by kernel, and print
+   (without gating) whether two steps from one state give bitwise-equal
+   parameters.
+5. Print the card's name and power limit, one JSON line with every
    kernel's numbers, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -52,6 +66,11 @@ BQ_OPS_PER_TEST = 9  # 3 sub, 3 mul, 2 add, 1 compare
 # few ulps of (|c| + |p|)^2; a kernel/plain disagreement is allowed only
 # for a point this close to the radius (about 1e-5 at room scale)
 BQ_GAP_ULPS = 8 * 2.0 ** -24
+# grouping backward: fixed-order f32 sums against the f64 plain backward
+GROUP_GRAD_RTOL = 1e-5
+# a sleep kernel of this many clock cycles (a few ms) keeps the device busy
+# while the host queues the calls that a kernel timing measures
+AHEAD_CYCLES = 10_000_000
 
 
 def require(cond, what: str):
@@ -67,8 +86,15 @@ def card_header() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median milliseconds of `fn` over `reps` runs, CUDA events."""
+def cuda_ms(fn, reps: int, warmup: int = 1, inner: int = 1,
+            ahead: bool = False) -> float:
+    """Median milliseconds of `fn` over `reps` runs, CUDA events. With
+    `inner` > 1 each run is `inner` back-to-back calls between one pair
+    of events (divided by `inner`). With `ahead`, a sleep kernel is
+    queued before the first event, so that the host has queued the calls
+    before the device reaches them: the events then time the device's
+    work, not the host's launch overhead (for a kernel comparison; an
+    end-to-end time leaves it off)."""
     import torch
 
     for _ in range(warmup):
@@ -77,11 +103,14 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if ahead:
+            torch.cuda._sleep(AHEAD_CYCLES)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -102,8 +131,8 @@ def check_fps(label, xyz, npoint, fps, reps, candidates=None):
             f"fps {label}: kernel != plain at"
             f" {(got != want).sum().item()} of {got.numel()} samples")
     b, n, _ = x.shape
-    ms = cuda_ms(lambda: fps._fps_cuda(x, npoint), reps)
-    plain = cuda_ms(lambda: fps._fps_torch(x, npoint), 2)
+    ms = cuda_ms(lambda: fps._fps_cuda(x, npoint), reps, ahead=True)
+    plain = cuda_ms(lambda: fps._fps_torch(x, npoint), 2, ahead=True)
     bnd, by = bound_ms(FPS_OPS_PER_POINT * b * (npoint - 1) * n,
                        b * n * 12 + b * npoint * 4)
     print(f"  fps {label:14s} B={b} N={n} -> {npoint}: kernel {ms:.4f} ms,"
@@ -156,9 +185,9 @@ def check_bq(label, xyz, ctr, radius, nsample, bq, reps):
     span = torch.clamp(n - base, 0, bucket)
     tests = torch.where(ph, pi - base + 1, span).sum().item()
     ms = cuda_ms(lambda: bq._ball_query_stratified_cuda(
-        xyz, ctr, radius, nsample), reps)
+        xyz, ctr, radius, nsample), reps, ahead=True)
     plain = cuda_ms(lambda: bq._ball_query_stratified_torch(
-        xyz, ctr, radius, nsample), 3)
+        xyz, ctr, radius, nsample), 3, ahead=True)
     bnd, by = bound_ms(BQ_OPS_PER_TEST * tests,
                        b * n * 12 + b * m * 12 + b * m * nsample * 5)
     print(f"  bq  {label:14s} N={n} M={m} S={nsample} r={radius}"
@@ -172,40 +201,274 @@ def check_bq(label, xyz, ctr, radius, nsample, bq, reps):
                 boundary_points=gap.numel())
 
 
-def summarize(name, kernel, source, records, launches):
-    """One kernel's line: times summed over the main-path shapes, so
-    `ms` is that kernel's time per forward."""
-    main = [r for r in records if r.get("main_path")]
+def check_group(label, points, ctr, radius, nsample, bq, grouping, reps):
+    """Kernel vs plain stratified grouping at one main-path input
+    (idx/hit from the ball query); returns (forward, backward) records.
+
+    Forward: bit-exact. Backward: within GROUP_GRAD_RTOL of the plain
+    backward computed in float64, relative to the largest gradient, and
+    bitwise equal over two runs. `library_ms` is one ``torch.gather``
+    call (forward) and its autograd backward."""
+    import types
+
+    import torch
+
+    idx, hit = bq.ball_query_stratified(points[..., :3], ctr, radius,
+                                        nsample, return_hit=True)
+    b, n, c = points.shape
+    m = ctr.shape[1]
+    gen = torch.Generator(points.device).manual_seed(nsample * c)
+    gout = torch.randn((b, m, nsample, c), device=points.device,
+                       generator=gen)
+    cuda = grouping._GroupStratifiedCuda
+    got = cuda.apply(points, idx, hit)
+    want = grouping._group_points_stratified_torch(points, idx, hit)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want),
+            f"group {label}: forward kernel != plain at"
+            f" {(got != want).sum().item()} of {got.numel()} values")
+
+    ctx = types.SimpleNamespace(saved_tensors=(idx, hit), n=n)
+    g1 = cuda.backward(ctx, gout)[0]
+    g2 = cuda.backward(ctx, gout)[0]
+    p64 = points.double().requires_grad_()
+    (g64,) = torch.autograd.grad(
+        grouping._group_points_stratified_torch(p64, idx, hit), p64,
+        gout.double())
+    torch.cuda.synchronize()
+    scale = g64.abs().max().item()
+    err = (g1.double() - g64).abs().max().item() / max(scale, 1e-30)
+    require(err <= GROUP_GRAD_RTOL,
+            f"group {label}: backward error {err:.2e} of the largest"
+            f" gradient, above {GROUP_GRAD_RTOL}")
+    require(torch.equal(g1, g2), f"group {label}: backward not bitwise"
+                                 " repeatable")
+
+    index = idx.reshape(b, m * nsample, 1).long().expand(-1, -1, c)
+    pg = points.detach().requires_grad_()
+    plain_out = grouping._group_points_stratified_torch(pg, idx, hit)
+    lib_out = torch.gather(pg, 1, index)
+    flat_gout = gout.reshape(b, m * nsample, c)
+    kw = dict(reps=reps, inner=20, ahead=True)
+    fwd_ms = cuda_ms(lambda: cuda.apply(points, idx, hit), **kw)
+    fwd_plain = cuda_ms(lambda: grouping._group_points_stratified_torch(
+        points, idx, hit), **kw)
+    fwd_lib = cuda_ms(lambda: torch.gather(points, 1, index), **kw)
+    bwd_ms = cuda_ms(lambda: cuda.backward(ctx, gout), **kw)
+    bwd_plain = cuda_ms(lambda: torch.autograd.grad(
+        plain_out, pg, gout, retain_graph=True), **kw)
+    bwd_lib = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, pg, flat_gout, retain_graph=True), **kw)
+    out_bytes = b * m * nsample * c * 4
+    fwd_bound, fwd_by = bound_ms(0, b * m * nsample * 4 + b * n * c * 4
+                                 + out_bytes)
+    bwd_bound, bwd_by = bound_ms(b * m * nsample * c,  # one add each
+                                 out_bytes + b * m * nsample * 5
+                                 + b * n * c * 4)
+    print(f"  group {label:12s} N={n} C={c} M={m} S={nsample}: forward"
+          f" kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f}, gather"
+          f" {fwd_lib:.4f}, bound {fwd_bound:.4f} ({fwd_by}), bit-exact;"
+          f" backward kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f},"
+          f" gather backward {bwd_lib:.4f}, bound {bwd_bound:.4f}"
+          f" ({bwd_by}), error {err:.2e} of max |g|, repeatable;"
+          f" hit rate {hit.float().mean().item():.3f}")
+    fwd = dict(shape=label, ms=fwd_ms, plain_ms=fwd_plain,
+               library_ms=fwd_lib, bound_ms=fwd_bound, bound_by=fwd_by,
+               max_abs_err=0)
+    bwd = dict(shape=label, ms=bwd_ms, plain_ms=bwd_plain,
+               library_ms=bwd_lib, bound_ms=bwd_bound, bound_by=bwd_by,
+               max_abs_err=err * scale, rel_err=err)
+    return fwd, bwd
+
+
+def summarize(name, kernel, source, records, launches, path):
+    """One kernel's line: times summed over the records on `path`
+    (each record lists the paths it is on), so `ms` is that kernel's
+    time per forward (or per backward) on that path."""
+    main = [r for r in records if path in r.get("paths", ())]
     ops_bound = sum(r["bound_ms"] for r in main if r["bound_by"] ==
                     "operations")
     byte_bound = sum(r["bound_ms"] for r in main if r["bound_by"] ==
                      "bytes")
+    lib = [r.get("library_ms") for r in main]
     return {
         "name": name, "route": "cuda", "source": source,
-        "replaces": kernel.replaces, "launches": launches,
+        "replaces": kernel.replaces, "launches": launches[path],
+        "launches_by_path": launches,
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": sum(r["ms"] for r in main),
         "plain_ms": sum(r["plain_ms"] for r in main),
         "bound_ms": ops_bound + byte_bound,
         "bound_by": "operations" if ops_bound >= byte_bound else "bytes",
-        "library_ms": None,
+        "library_ms": None if None in lib else sum(lib),
         "per_shape": records,
     }
 
 
-def profile_forward(model, pc):
-    """Device time by kernel over 3 forwards (torch.profiler)."""
+def _device_us(event) -> float:
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def step_phases(model, opt, criterion, cfg, batch, bn_momentum, reps=5):
+    """Median device milliseconds of each phase of the train step (the
+    sequence of `votenet.make_train_step`), CUDA events between
+    phases."""
     import torch
+
+    from backtoreality_tpu_torch.nn import set_bn_momentum
+
+    names = ("forward", "loss", "backward", "optimizer")
+    times = {k: [] for k in names}
+    model.train()
+    set_bn_momentum(model, bn_momentum)
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        end_points = model(batch["point_clouds"])
+        ev[1].record()
+        loss, _ = criterion({**batch, **end_points}, cfg)
+        ev[2].record()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        ev[4].synchronize()
+        for i, k in enumerate(names):
+            times[k].append(ev[i].elapsed_time(ev[i + 1]))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def profile_steps(fn, label, steps=3):
+    """Device time by kernel over `steps` calls of `fn` (torch.profiler);
+    prints the table and returns the kernels' device milliseconds per
+    call."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            model(pc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
         torch.cuda.synchronize()
-    print("[profile] 3 forwards, by self device time")
-    print(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                    row_limit=25))
+    table = prof.key_averages()
+    # kernels are the device-side events; the CPU-side op entries carry
+    # the same time again, as does any user annotation
+    dev_ms = sum(_device_us(e) for e in table
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 ) / 1e3 / steps
+    print(f"[profile] {steps} {label}, by self device time:"
+          f" {dev_ms:.3f} ms of kernels per call")
+    print(table.table(sort_by="self_cuda_time_total", row_limit=25))
+    return dev_ms
+
+
+def reset(kernels):
+    for k in kernels:
+        k.launches = 0
+        k.backward_launches = 0
+
+
+def train_phase(scans, tmp, cfg, kernels, header):
+    """The FSB entry point on the card, then the bench-config step."""
+    import copy
+
+    import torch
+
+    from backtoreality_tpu_torch.data.dataset import DetectionDataset
+    from backtoreality_tpu_torch.data.loader import DetectionDataLoader
+    from backtoreality_tpu_torch.losses import votenet as vote_losses
+    from backtoreality_tpu_torch.train import common, evaluate, votenet
+    from backtoreality_tpu_torch.train import votenet_fsb
+
+    fps_k, bq_k, group_k = kernels
+    log = pathlib.Path(tmp) / "fsb_log"
+    epochs = 2
+    reset(kernels)
+    t0 = time.perf_counter()
+    votenet_fsb.main([
+        "--data_root", str(scans), "--train_split", "all", "--val_split",
+        "all", "--log_dir", str(log), "--device", "cuda", "--num_point",
+        str(N), "--batch_size", str(B), "--fps_candidates", "8192",
+        "--max_epoch", str(epochs), "--eval_freq", str(epochs)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = epochs * (NUM_SCANS // B)
+    forwards = steps + math.ceil(NUM_SCANS / B)  # + one evaluation
+    launches = {"fps": fps_k.launches, "ball_query": bq_k.launches,
+                "group_stratified": group_k.launches,
+                "group_stratified_backward": group_k.backward_launches}
+    print(f"[training path] votenet_fsb.main: {steps} steps + one"
+          f" evaluation over {NUM_SCANS} scans in {train_s:.1f} s;"
+          f" launches {launches}")
+    for name in ("fps", "ball_query", "group_stratified"):
+        require(launches[name] == 5 * forwards,
+                f"{name}: {launches[name]} launches in training, expected"
+                f" 5 per forward ({forwards} forwards)")
+    require(launches["group_stratified_backward"] == 4 * steps,
+            f"group_stratified backward: {group_k.backward_launches}"
+            f" launches, expected 4 per step ({steps} steps)")
+    rows = [json.loads(line) for line in
+            (log / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    require(len(losses) == epochs and all(map(math.isfinite, losses)),
+            f"training losses not finite: {losses}")
+    print(f"  epoch losses {losses}")
+    results = evaluate.main(["--checkpoint_path", str(log / "checkpoint.tar"),
+                             "--data_root", str(scans), "--split", "all",
+                             "--num_point", str(N), "--batch_size", str(B),
+                             "--device", "cuda"])
+    require(all(math.isfinite(m["mAP"]) for m in results.values()),
+            "evaluate on the trained checkpoint: non-finite mAP")
+
+    # the bench.py configuration on a fixed batch
+    flags = votenet.add_common_flags(argparse.ArgumentParser()).parse_args(
+        ["--fps_candidates", "8192"])
+    torch.manual_seed(0)
+    model = votenet.build_model(flags, cfg).cuda()
+    opt = common.make_optimizer(model.parameters(), "adam", lr0=1e-3)
+    step = votenet.make_train_step(model, opt, vote_losses.get_loss, cfg)
+    ds = DetectionDataset(cfg, scans, split="all", num_points=N,
+                          use_height=True, augment=True)
+    batch = votenet.to_device(next(iter(DetectionDataLoader(
+        ds, B, shuffle=False, prefetch=0))), "cuda")
+    for _ in range(2):
+        aux = step(batch, 0.5)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(batch, 0.5), reps=10, warmup=0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    aux = step(batch, 0.5)
+    require(math.isfinite(aux["loss"].item()), "bench step loss not finite")
+    print(f"[train step] VoteNet FSB B={B} N={N} fps_candidates=8192, Adam"
+          f" lr 1e-3, BN momentum 0.5: {step_ms:.3f} ms per step (median"
+          f" of 10 after 2 warm-ups), {B / step_ms * 1e3:.1f} scenes/s,"
+          f" peak {peak_gb:.2f} GiB, loss {aux['loss'].item():.4f}"
+          f"  | {header}")
+    phases = step_phases(model, opt, vote_losses.get_loss, cfg, batch, 0.5)
+    print("  phases (median of 5, CUDA events): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in phases.items()))
+    dev_ms = profile_steps(lambda: step(batch, 0.5), "train steps")
+    print(f"  device busy {dev_ms / step_ms:.3f} of the unprofiled step"
+          f" ({dev_ms:.3f} of {step_ms:.3f} ms)")
+
+    # bitwise determinism of a whole step (printed, not gated: the other
+    # gathers' backwards and the interpolation's still use atomics)
+    state = copy.deepcopy(model.state_dict())
+    opt_state = copy.deepcopy(opt.state_dict())
+    after = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        opt.load_state_dict(opt_state)
+        step(batch, 0.5)
+        after.append([p.detach().clone() for p in model.parameters()])
+    differ = sum(not torch.equal(a, b) for a, b in zip(*after))
+    print(f"[determinism] two steps from one state and batch: {differ} of"
+          f" {len(after[0])} parameter tensors differ bitwise")
+    return launches
 
 
 def main() -> int:
@@ -223,6 +486,7 @@ def main() -> int:
     from backtoreality_tpu_torch.ops import _build
     from backtoreality_tpu_torch.ops import ball_query as bq
     from backtoreality_tpu_torch.ops import fps
+    from backtoreality_tpu_torch.ops import grouping
     from backtoreality_tpu_torch.train import evaluate
 
     header = card_header()
@@ -232,10 +496,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    kernels = (fps.KERNEL, bq.KERNEL, grouping.KERNEL)
 
     # 1. build
     t0 = time.perf_counter()
-    logs = _build.build_all([fps.KERNEL, bq.KERNEL])
+    logs = _build.build_all(kernels)
     print(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -267,7 +532,10 @@ def main() -> int:
         ep = model(pc)
     torch.cuda.synchronize()
 
-    # 2. kernels against their plain versions at the main path's inputs
+    # 2. kernels against their plain versions at the main paths' inputs;
+    # SA1 FPS runs over the full cloud when serving and over the first
+    # 8192 candidates when training, every other call on both paths
+    both = ("serving", "training")
     print("[kernels] kernel vs plain on the card (median of CUDA events)")
     xyz = pc[..., 0:3]
     fps_records = []
@@ -276,7 +544,7 @@ def main() -> int:
             ("sa3", ep["sa2_xyz"], 512), ("sa4", ep["sa3_xyz"], 256),
             ("vote_agg", ep["vote_xyz"], 256)):
         rec = check_fps(label, x, npoint, fps, reps=5)
-        rec["main_path"] = True
+        rec["paths"] = ("serving",) if label == "sa1" else both
         fps_records.append(rec)
     edge = xyz.clone()
     edge[0, N - N // 10:] = 0.0  # padded tail
@@ -284,39 +552,56 @@ def main() -> int:
     fps_records.append(check_fps("padded", edge, 2048, fps, reps=1))
     require(bool((fps.furthest_point_sample(edge, 64)[1] == 0).all()),
             "fps: an all-padding row must give index 0")
-    fps_records.append(check_fps("candidates8192", xyz, 2048, fps, reps=3,
-                                 candidates=8192))
+    rec = check_fps("candidates8192", xyz, 2048, fps, reps=3,
+                    candidates=8192)
+    rec["paths"] = ("training",)
+    fps_records.append(rec)
     odd = torch.randn(3, 257, 3, device=device,
                       generator=torch.Generator(device).manual_seed(0))
     fps_records.append(check_fps("n257", odd, 33, fps, reps=3))
 
+    sa_calls = (
+        ("sa1", xyz, pc[..., 3:], ep["sa1_xyz"], 0.2, 64),
+        ("sa2", ep["sa1_xyz"], ep["sa1_features"], ep["sa2_xyz"], 0.4, 32),
+        ("sa3", ep["sa2_xyz"], ep["sa2_features"], ep["sa3_xyz"], 0.8, 16),
+        ("sa4", ep["sa3_xyz"], ep["sa3_features"], ep["sa4_xyz"], 1.2, 16),
+        ("vote_agg", ep["vote_xyz"], ep["vote_features"],
+         ep["aggregated_vote_xyz"], 0.3, 16))
     bq_records = []
-    for label, x, c, r, s in (
-            ("sa1", xyz, ep["sa1_xyz"], 0.2, 64),
-            ("sa2", ep["sa1_xyz"], ep["sa2_xyz"], 0.4, 32),
-            ("sa3", ep["sa2_xyz"], ep["sa3_xyz"], 0.8, 16),
-            ("sa4", ep["sa3_xyz"], ep["sa4_xyz"], 1.2, 16),
-            ("vote_agg", ep["vote_xyz"], ep["aggregated_vote_xyz"], 0.3,
-             16)):
+    for label, x, _, c, r, s in sa_calls:
         rec = check_bq(label, x, c, r, s, bq, reps=10)
-        rec["main_path"] = True
+        rec["paths"] = both
         bq_records.append(rec)
+    group_fwd, group_bwd = [], []
+    for label, x, feats, c, r, s in sa_calls:
+        fwd, bwd = check_group(label, torch.cat([x, feats], -1), c, r, s,
+                               bq, grouping, reps=10)
+        fwd["paths"] = both
+        # SA1's input (coordinates and height) needs no gradient
+        bwd["paths"] = () if label == "sa1" else ("training",)
+        group_fwd.append(fwd)
+        group_bwd.append(bwd)
     del ep
 
-    # 3. the main path: the evaluation entry point on the card
-    for k in (fps.KERNEL, bq.KERNEL):
-        k.launches = 0
+    # 3. the serving path: the evaluation entry point on the card
+    reset(kernels)
     t0 = time.perf_counter()
     results = evaluate.main(["--model", "votenet", "--checkpoint_path",
                              str(ckpt), "--device", "cuda", *common])
     eval_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in (fps.KERNEL, bq.KERNEL)}
+    serving = {"fps": fps.KERNEL.launches,
+               "ball_query": bq.KERNEL.launches,
+               "group_stratified": grouping.KERNEL.launches,
+               "group_stratified_backward":
+                   grouping.KERNEL.backward_launches}
     batches = math.ceil(NUM_SCANS / B)
-    print(f"[main path] evaluate.main over {NUM_SCANS} scans in"
-          f" {eval_s:.1f} s; launches {launches} over {batches} batches")
-    for name, count in launches.items():
-        require(count == 5 * batches,
-                f"{name}: {count} launches, expected 5 per batch")
+    print(f"[serving path] evaluate.main over {NUM_SCANS} scans in"
+          f" {eval_s:.1f} s; launches {serving} over {batches} batches")
+    for name in ("fps", "ball_query", "group_stratified"):
+        require(serving[name] == 5 * batches,
+                f"{name}: {serving[name]} launches, expected 5 per batch")
+    require(serving["group_stratified_backward"] == 0,
+            "grouping backward launched while serving")
     for (_, t), metrics in results.items():
         require(math.isfinite(metrics["mAP"]) and
                 math.isfinite(metrics["AR"]), f"non-finite mAP @ {t}")
@@ -331,22 +616,41 @@ def main() -> int:
                 "forward output not finite or of the wrong shape")
         torch.cuda.reset_peak_memory_stats()
         fwd_ms = cuda_ms(lambda: model(pc), reps=10, warmup=2)
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[forward] VoteNet B={B} N={N}: {fwd_ms:.3f} ms per batch"
-          f" (median of 10), {B / fwd_ms * 1e3:.1f} scenes/s,"
-          f" peak {peak_gb:.2f} GiB  | {header}")
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[forward] VoteNet B={B} N={N}: {fwd_ms:.3f} ms per batch"
+              f" (median of 10), {B / fwd_ms * 1e3:.1f} scenes/s,"
+              f" peak {peak_gb:.2f} GiB  | {header}")
+        dev_ms = profile_steps(lambda: model(pc), "forwards")
+        print(f"  device busy {dev_ms / fwd_ms:.3f} of the unprofiled"
+              f" forward")
+    del model, out
 
-    kernels = [
+    # 4. the training path
+    training = train_phase(scans, tmp.name, cfg, kernels, header)
+    tmp.cleanup()
+
+    def by_path(name):
+        return {"serving": serving[name], "training": training[name]}
+
+    kernels_line = [
         summarize("fps", fps.KERNEL, "backtoreality_tpu_torch/csrc/fps.cu",
-                  fps_records, launches["fps"]),
+                  fps_records, by_path("fps"), "training"),
         summarize("ball_query_stratified", bq.KERNEL,
                   "backtoreality_tpu_torch/csrc/ball_query.cu", bq_records,
-                  launches["ball_query"]),
+                  by_path("ball_query"), "training"),
+        summarize("group_stratified", grouping.KERNEL,
+                  "backtoreality_tpu_torch/csrc/group_stratified.cu",
+                  group_fwd, by_path("group_stratified"), "training"),
+        summarize("group_stratified_backward", grouping.KERNEL,
+                  "backtoreality_tpu_torch/csrc/group_stratified.cu",
+                  group_bwd, by_path("group_stratified_backward"),
+                  "training"),
     ]
-    profile_forward(model, pc)
-    tmp.cleanup()
+    for k in kernels_line:
+        require(k["launches"] > 0, f"{k['name']}: not launched on the"
+                                   " training path")
     print(header)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from backtoreality_tpu import ops as jops
@@ -23,6 +24,7 @@ jfps = importlib.import_module("backtoreality_tpu.ops.fps")
 jbq = importlib.import_module("backtoreality_tpu.ops.ball_query")
 tfps = importlib.import_module("backtoreality_tpu_torch.ops.fps")
 tbq = importlib.import_module("backtoreality_tpu_torch.ops.ball_query")
+tgroup = importlib.import_module("backtoreality_tpu_torch.ops.grouping")
 
 
 def _boundary_free_radius(xyz, centers, r, margin=1e-5):
@@ -174,3 +176,135 @@ class TestGroupingInterpolate:
                                      torch.from_numpy(idx),
                                      torch.from_numpy(w)).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def _stratified_case(seed, n, m, s, radius_frac, c):
+    """Cloud, features and the JAX stratified ball query's (idx, hit),
+    with one centre that has no neighbour at all."""
+    rng = np.random.default_rng(seed)
+    xyz = make_cloud(rng, 2, n, pad_frac=0.0, scale=1.5)
+    centers = xyz[:, :m].copy()
+    centers[0, 0] = 50.0
+    r = safe_radius(xyz, centers, radius_frac)
+    feats = rng.normal(size=(2, n, c)).astype(np.float32)
+    idx, hit = jops.ball_query_stratified(
+        jnp.asarray(xyz), jnp.asarray(centers), r, s, return_hit=True)
+    gout = rng.normal(size=(2, m, s, c)).astype(np.float32)
+    return feats, np.array(idx), np.array(hit), gout
+
+
+def _two_pass_backward(gout, idx, hit, n, bucket):
+    """The CUDA kernel's backward design in numpy (fold the slot-filled
+    slots into the first-hit slot's row, then reduce each stratum over
+    its centres in order), to hold the design itself against the
+    scatter-add on the CPU."""
+    b, m, s, c = gout.shape
+    grad = np.zeros((b, n, c), np.float64)
+    for bi in range(b):
+        for mi in range(m):
+            h = hit[bi, mi]
+            first = int(np.argmax(h)) if h.any() else 0
+            fold = gout[bi, mi][~h].astype(np.float64).sum(0)
+            for t in range(s):
+                if h[t] or t == first:
+                    k = idx[bi, mi, t]
+                    assert t * bucket <= k < (t + 1) * bucket
+                    grad[bi, k] += (gout[bi, mi, t] if h[t] else 0.0) + (
+                        fold if t == first else 0.0)
+    return grad
+
+
+class TestGroupStratified:
+    """K4's plain version (`_group_points_stratified_torch`) against the
+    JAX `group_points_stratified`, through the Pallas kernel in
+    interpret mode and through the one-hot einsum."""
+
+    @pytest.mark.parametrize("use_pallas", [True, False])
+    @pytest.mark.parametrize("radius_frac", [0.9, 0.25])
+    def test_plain_equals_jax(self, use_pallas, radius_frac):
+        feats, idx, hit, _ = _stratified_case(11, 300, 24, 8, radius_frac,
+                                              7)
+        want = np.asarray(jops.group_points_stratified(
+            jnp.asarray(feats), jnp.asarray(idx), jnp.asarray(hit),
+            use_pallas=use_pallas))
+        got = tgroup._group_points_stratified_torch(
+            torch.from_numpy(feats), torch.from_numpy(idx),
+            torch.from_numpy(hit)).numpy()
+        np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("use_pallas", [True, False])
+    def test_gradient_matches_jax_vjp(self, use_pallas):
+        feats, idx, hit, gout = _stratified_case(12, 300, 24, 8, 0.6, 5)
+        _, vjp = jax.vjp(lambda p: jops.group_points_stratified(
+            p, jnp.asarray(idx), jnp.asarray(hit), use_pallas=use_pallas),
+            jnp.asarray(feats))
+        (want,) = vjp(jnp.asarray(gout))
+        p = torch.from_numpy(feats).requires_grad_()
+        out = tops.group_points_stratified(p, torch.from_numpy(idx),
+                                           torch.from_numpy(hit))
+        (got,) = torch.autograd.grad(out, p, torch.from_numpy(gout))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5)
+
+    @pytest.mark.parametrize("n,m,s,radius_frac",
+                             [(300, 24, 8, 0.9), (300, 24, 8, 0.25),
+                              (700, 40, 16, 0.5)])
+    def test_kernel_backward_design(self, n, m, s, radius_frac):
+        feats, idx, hit, gout = _stratified_case(n + s, n, m, s,
+                                                 radius_frac, 3)
+        want = np.zeros((2, n, 3))
+        for bi in range(2):
+            np.add.at(want[bi], idx[bi].reshape(-1),
+                      gout[bi].reshape(-1, 3).astype(np.float64))
+        got = _two_pass_backward(gout, idx, hit, n,
+                                 tbq._bucket_size(n, s))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+    def test_cpu_tensor_takes_plain_version(self):
+        feats, idx, hit, _ = _stratified_case(13, 200, 16, 8, 0.5, 4)
+        before = (tgroup.KERNEL.launches, tgroup.KERNEL.backward_launches)
+        p = torch.from_numpy(feats).requires_grad_()
+        tops.group_points_stratified(p, torch.from_numpy(idx),
+                                     torch.from_numpy(hit)).sum().backward()
+        assert p.grad.shape == p.shape
+        assert (tgroup.KERNEL.launches,
+                tgroup.KERNEL.backward_launches) == before
+
+    def test_rejects_other_devices(self):
+        pts = torch.zeros(1, 16, 4, device="meta")
+        idx = torch.zeros(1, 4, 2, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError):
+            tops.group_points_stratified(pts, idx, idx.bool())
+
+
+class TestChamfer:
+    @pytest.mark.parametrize("mode", ["sq", "l1", "l1smooth"])
+    def test_nn_distance_matches_jax(self, mode):
+        rng = np.random.default_rng(21)
+        pc1 = (rng.normal(size=(3, 40, 3)) * 1.5).astype(np.float32)
+        pc2 = (rng.normal(size=(3, 17, 3)) * 1.5).astype(np.float32)
+        kw = dict(l1=mode == "l1", l1smooth=mode == "l1smooth")
+        want = jops.nn_distance(jnp.asarray(pc1), jnp.asarray(pc2), **kw)
+        got = tops.nn_distance(torch.from_numpy(pc1),
+                               torch.from_numpy(pc2), **kw)
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            if w.dtype.kind in "iu":
+                assert g.dtype == torch.int32
+                np.testing.assert_array_equal(g.numpy(), w)
+            else:
+                np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-6)
+
+    def test_argmin_ties_take_lowest_index(self):
+        pc1 = torch.zeros(1, 1, 3)
+        pc2 = torch.tensor([[[1.0, 0, 0], [0, 1.0, 0], [0, 0, 1.0]]])
+        _, idx1, _, idx2 = tops.nn_distance(pc1, pc2)
+        assert idx1.tolist() == [[0]] and idx2.tolist() == [[0, 0, 0]]
+
+    def test_huber_loss_matches_jax(self):
+        err = np.random.default_rng(22).normal(size=(50,)).astype(
+            np.float32) * 2
+        for delta in (1.0, 0.5):
+            want = np.asarray(jops.huber_loss(jnp.asarray(err), delta))
+            got = tops.huber_loss(torch.from_numpy(err), delta).numpy()
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

@@ -13,7 +13,9 @@ height feature) with the JAX init carried over by
   JAX package fuses that sum into FMAs under jit, so the two frameworks'
   residues differ and the weights with them (about 4e-3 on fp2).
 * float64 (JAX with x64 on, the port's model in double): every
-  end_points entry must match — indices exactly, floats to atol 1e-9.
+  end_points entry must match — indices exactly, floats to atol 1e-9 —
+  with the proposal centres sampled by FPS over the votes (``vote_fps``)
+  and over the seeds (``seed_fps``).
   The stratified ball query runs in f32 in both packages, on identical
   coordinates.
 """
@@ -81,12 +83,12 @@ def test_set_abstraction_matches_f32(setup):
     _compare(jax_out, port_out, keys, atol=1e-4)
 
 
-def test_end_points_match_f64(setup):
+def _end_points_match_f64(setup, sampling):
     jax.config.update("jax_enable_x64", True)
     try:
         jax_model = JaxVoteNet(mean_size_arr=setup["msa"],
                                dtype=jnp.float64, head_dtype=jnp.float64,
-                               **setup["kw"])
+                               sampling=sampling, **setup["kw"])
         v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
                                      setup["variables"])
         jax_out = jax.device_get(jax.jit(
@@ -94,13 +96,30 @@ def test_end_points_match_f64(setup):
                 v64, jnp.asarray(setup["pc"], jnp.float64)))
     finally:
         jax.config.update("jax_enable_x64", False)
-    port = VoteNet(mean_size_arr=setup["cfg"].mean_size_arr, **setup["kw"])
+    port = VoteNet(mean_size_arr=setup["cfg"].mean_size_arr,
+                   sampling=sampling, **setup["kw"])
     port.load_state_dict(setup["port"].state_dict())
     port.double().eval()
     with torch.no_grad():
         port_out = port(torch.from_numpy(setup["pc"]).double())
     assert set(port_out) == set(jax_out)
     _compare(jax_out, port_out, sorted(jax_out), atol=1e-9)
+    return port_out
+
+
+def test_end_points_match_f64(setup):
+    _end_points_match_f64(setup, "vote_fps")
+
+
+def test_end_points_match_f64_seed_fps(setup):
+    """Proposal centres sampled by FPS over the seeds (`seed_fps`)."""
+    out = _end_points_match_f64(setup, "seed_fps")
+    # the centres are votes at FPS-of-seeds indices, not FPS of votes
+    inds = out["aggregated_vote_inds"].long()
+    np.testing.assert_array_equal(
+        out["aggregated_vote_xyz"].numpy(),
+        torch.gather(out["vote_xyz"], 1,
+                     inds[..., None].expand(-1, -1, 3)).numpy())
 
 
 def test_bridge_maps_every_leaf(setup):
@@ -138,3 +157,32 @@ def test_batchnorm_train_mode_matches_jax():
     np.testing.assert_allclose(bn.running_var.numpy(),
                                np.asarray(mut["batch_stats"]["var"]),
                                rtol=0, atol=1e-6)
+
+
+def test_batchnorm_running_stats_match_jax_f64():
+    """Train-mode running statistics in float64 at a momentum that is not
+    exact in float32: the JAX package rounds the call-time momentum to
+    float32 and takes 1 - momentum in float32, so must the port."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(3, 50, 6)) * 2 + 0.5
+    variables = {"params": {"scale": np.ones(6), "bias": np.zeros(6)},
+                 "batch_stats": {"mean": rng.normal(size=6),
+                                 "var": rng.uniform(0.5, 2.0, 6)}}
+    jax.config.update("jax_enable_x64", True)
+    try:
+        _, mut = JaxBatchNorm(6, dtype=jnp.float64).apply(
+            variables, jnp.asarray(x), train=True, momentum=0.1,
+            mutable=["batch_stats"])
+        mut = jax.device_get(mut)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    bn = BatchNorm(6, momentum=0.1).double()
+    bn.load_state_dict(state_dict_from_jax(variables))
+    bn.train()
+    bn(torch.from_numpy(x))
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               mut["batch_stats"]["mean"], rtol=0,
+                               atol=1e-14)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               mut["batch_stats"]["var"], rtol=0,
+                               atol=1e-14)
