@@ -13,7 +13,8 @@ query. Two implementations of one function:
 * :class:`_GroupStratifiedCuda` — the hand-written kernel
   ``csrc/group_stratified.cu`` (counterpart of the Pallas kernel
   ``_group_bucketed_kernel`` and its custom VJP), whose backward is a
-  deterministic segmented reduction with no float atomics.
+  deterministic segmented reduction with no float atomics: the lists of
+  contributions per point are built once per call, then summed in order.
 """
 
 from __future__ import annotations
@@ -35,13 +36,13 @@ KERNEL = _build.Kernel(
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p],
-        # gout, idx, hit, b, n, m, nsample, bucket, c, fold, first, grad,
-        # stream
+        # gout, idx, hit, b, n, m, nsample, bucket, c, start, list, fold,
+        # grad, stream
         "group_stratified_bwd_launch": [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p],
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
     })
 
 
@@ -84,8 +85,8 @@ def _check_cuda_args(points, idx, hit):
 
 
 class _GroupStratifiedCuda(torch.autograd.Function):
-    """Forward: the gather kernel. Backward: the fold and reduce passes,
-    a fixed-order sum per point (bitwise repeatable)."""
+    """Forward: the gather kernel. Backward: the lists, fold and reduce
+    passes, a fixed-order sum per point (bitwise repeatable)."""
 
     @staticmethod
     def forward(ctx, points, idx, hit):
@@ -115,14 +116,20 @@ class _GroupStratifiedCuda(torch.autograd.Function):
         b, m, s, c = gout.shape
         n = ctx.n
         bucket = _bucket_size(n, s)
+        live = -(-n // bucket)  # strata that hold a point
         dev = gout.device
+        # one allocation for the lists' two arrays: start (b, live,
+        # bucket + 1), then list (b, live, 2 m)
+        cells = b * live
+        ints = torch.empty(cells * (bucket + 1 + 2 * m), dtype=torch.int32,
+                           device=dev)
+        lists = ctypes.c_void_p(ints.data_ptr() + 4 * cells * (bucket + 1))
         fold = torch.empty(b, m, c, dtype=torch.float32, device=dev)
-        first = torch.empty(b, m, dtype=torch.int32, device=dev)
         grad = torch.empty(b, n, c, dtype=torch.float32, device=dev)
         err = KERNEL.lib.group_stratified_bwd_launch(
             _build.ptr(gout), _build.ptr(idx), _build.ptr(hit), b, n, m, s,
-            bucket, c, _build.ptr(fold), _build.ptr(first), _build.ptr(grad),
-            _build.stream_of(gout))
+            bucket, c, _build.ptr(ints), lists, _build.ptr(fold),
+            _build.ptr(grad), _build.stream_of(gout))
         _build.check(err, "group_stratified_bwd_launch")
         KERNEL.backward_launches += 1
         return grad, None, None

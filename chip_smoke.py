@@ -10,14 +10,18 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
 2. Run the VoteNet forward once (B=8, N=40000, height feature, random
    seeded weights) on a synthetic batch to obtain the inputs each kernel
    gets on the main paths, then hold each kernel against its plain
-   PyTorch version on the card at those inputs: FPS bit-exact (plus a
-   padded tail, an all-padding row and ``candidates=8192``), stratified
-   ball query exact except at points within rounding error of the
-   radius, stratified grouping forward bit-exact and its backward within
-   1e-5 (relative to the largest gradient) of the plain backward in
-   float64 and bitwise equal over two runs. Kernel, plain and library
-   times are medians of CUDA events, with the host's launches queued
-   ahead of the device so that they time device work.
+   PyTorch version on the card at those inputs: FPS bit-exact, in the
+   layout the wrapper picks and in every other one (cluster size,
+   threads, points a thread), plus off the paths a padded tail, an
+   all-padding row, one scan alone, 50000 points, duplicated points whose
+   ties fall across blocks, lanes and registers, shards of padding only,
+   and a row that takes the capacity kernel; stratified ball query exact
+   except at points within rounding error of the radius; stratified
+   grouping forward bit-exact and its backward within 1e-5 (relative to
+   the largest gradient) of the plain backward in float64 and bitwise
+   equal over two runs, its three passes timed apart. Kernel, plain and
+   library times are medians of CUDA events, with the host's launches
+   queued ahead of the device so that they time device work.
 3. Serving path: reset the launch counters, run the evaluation entry
    point (``backtoreality_tpu_torch.train.evaluate.main``) over 16
    synthetic scans at B=8, N=40000 on ``cuda``, check that FPS, ball
@@ -39,6 +43,8 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It exits nonzero without a CUDA device, and imports nothing of JAX.
+``--kernels_only`` stops after phase 2 and prints its records as one JSON
+line (to time two trees' kernels in one run; it is not a pass).
 """
 
 from __future__ import annotations
@@ -119,8 +125,24 @@ def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_fps(label, xyz, npoint, fps, reps, candidates=None):
-    """Kernel vs plain FPS on one input; returns the per-shape record."""
+def fps_layouts(fps, b, n):
+    """The layouts other than the wrapper's own worth timing on a (b, n)
+    call: every cluster size that gives a block at least a warp's points,
+    and one block of 1 to 16 warps with the fewest points a thread."""
+    found = {fps.shard_plan(c, n) for c in (1, 2, 4, 8, 16) if n >= 32 * c}
+    for threads in (32, 64, 128, 256, 512):
+        points = [p for p in (1, 2, 4, 8, 16) if threads * p >= n]
+        if points and threads * points[0] < 2 * n:
+            found.add(fps.Plan(1, threads, points[0]))
+    return sorted(found - {None, fps.plan(b, n)})
+
+
+def check_fps(label, xyz, npoint, fps, reps, candidates=None,
+              others=False, want_cluster=None):
+    """Kernel vs plain FPS on one input; returns the per-shape record.
+    With `others`, every other layout is held against the plain version
+    and timed too. `want_cluster` tells which kind of layout the shape
+    must take: True a cluster, False the capacity kernel."""
     import torch
 
     got = fps.furthest_point_sample(xyz, npoint, candidates=candidates)
@@ -131,15 +153,103 @@ def check_fps(label, xyz, npoint, fps, reps, candidates=None):
             f"fps {label}: kernel != plain at"
             f" {(got != want).sum().item()} of {got.numel()} samples")
     b, n, _ = x.shape
+    layout = fps.plan(b, n)
+    if want_cluster is not None:
+        require((layout.cluster > 1) if want_cluster else
+                (layout.cluster == 0),
+                f"fps {label}: layout {tuple(layout)} is not the kind this"
+                " check is for")
     ms = cuda_ms(lambda: fps._fps_cuda(x, npoint), reps, ahead=True)
     plain = cuda_ms(lambda: fps._fps_torch(x, npoint), 2, ahead=True)
     bnd, by = bound_ms(FPS_OPS_PER_POINT * b * (npoint - 1) * n,
                        b * n * 12 + b * npoint * 4)
-    print(f"  fps {label:14s} B={b} N={n} -> {npoint}: kernel {ms:.4f} ms,"
-          f" plain {plain:.3f} ms, bound {bnd:.4f} ms ({by}),"
-          f" bit-exact")
-    return dict(shape=label, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by=by, max_abs_err=0)
+    per_sample = ms / (npoint - 1) * 1e3
+    held = (f" (the card holds {fps.KERNEL.lib.fps_max_clusters(*layout)}"
+            " such clusters at once)" if layout.cluster > 1 else "")
+    print(f"  fps {label:14s} B={b} N={n} -> {npoint}: kernel {ms:.4f} ms"
+          f" ({per_sample:.3f} us a sample), plain {plain:.3f} ms, bound"
+          f" {bnd:.4f} ms ({by}), bit-exact; cluster {layout.cluster},"
+          f" {layout.threads} threads, {layout.points} points a thread"
+          + held)
+    rec = dict(shape=label, ms=ms, plain_ms=plain, bound_ms=bnd,
+               bound_by=by, max_abs_err=0, us_per_sample=per_sample,
+               layout=tuple(layout))
+    if others:
+        rec["other_layouts"] = []
+        for other in fps_layouts(fps, b, n):
+            require(torch.equal(fps._fps_cuda(x, npoint, other), want),
+                    f"fps {label}: layout {tuple(other)} != plain")
+            t = cuda_ms(lambda: fps._fps_cuda(x, npoint, other), 3,
+                        ahead=True)
+            print(f"      as cluster {other.cluster}, {other.threads}"
+                  f" threads, {other.points} points: {t:.4f} ms"
+                  f" ({t / (npoint - 1) * 1e3:.3f} us a sample), bit-exact")
+            rec["other_layouts"].append(dict(layout=tuple(other), ms=t))
+    return rec
+
+
+def fps_edge_clouds(xyz, device):
+    """(label, cloud, npoint, want_cluster) for the FPS checks off the
+    main paths; few samples each, since the plain version is a Python
+    loop."""
+    import torch
+
+    gen = torch.Generator(device).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=device, generator=gen)
+
+    n = xyz.shape[1]
+    padded = xyz.clone()
+    padded[0, n - n // 10:] = 0.0  # padded tail
+    padded[1] = 0.0  # all padding
+    # duplicated points: a tie at every sample, between blocks of a
+    # cluster (8192 points: 16 blocks of 512), between neighbouring lanes
+    # and between the registers of one thread
+    uniq = randn(1024, 3)
+    i = torch.arange(8192, device=device)
+    ties = torch.stack([uniq[i % 1024], uniq[i // 8], uniq[i % 512],
+                        uniq[(i % 128) * 8]])
+    # shards of a cluster that hold padding only: the first block's, one
+    # in the middle, the last one's
+    shards = randn(3, 8192, 3)
+    shards[0, :512] = 0.0
+    shards[1, 1024:1536] = 0.0
+    shards[2, 8192 - 700:] = 0.0
+    return (
+        ("padded", padded, 2048, True),
+        ("one_scan", xyz[:1], 512, True),
+        ("n50000", randn(2, 50000, 3), 128, True),
+        ("ties", ties, 600, True),
+        ("pad_shards", shards, 256, True),
+        ("n257", randn(3, 257, 3), 33, None),
+        ("capacity", randn(1, 140000, 3), 16, False),
+    )
+
+
+def fps_floor(fps, device):
+    """The serial floor of one sample: the kernel on rows of one point a
+    thread (128 threads a block, or one warp), where the sweep is a dozen
+    instructions and what remains is the reduction, the exchange and the
+    barrier. Returns microseconds per sample by layout."""
+    import torch
+
+    floor = {}
+    npoint = 1025
+    for layout in (fps.Plan(1, 32, 1), *(fps.Plan(r, 128, 1)
+                                         for r in (1, 2, 4, 8, 16))):
+        n = layout.cluster * layout.threads
+        x = torch.randn(B, n, 3, device=device,
+                        generator=torch.Generator(device).manual_seed(n))
+        require(torch.equal(fps._fps_cuda(x, 65, layout),
+                            fps._fps_torch(x, 65)),
+                f"fps floor: layout {tuple(layout)} != plain")
+        ms = cuda_ms(lambda: fps._fps_cuda(x, npoint, layout), 5,
+                     ahead=True)
+        floor[tuple(layout)] = ms / (npoint - 1) * 1e3
+    print("  fps serial floor, us a sample (cluster, threads, points): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in floor.items()))
+    return floor
 
 
 def bq_gaps(xyz, ctr, radius, ki, kh, pi, ph):
@@ -208,7 +318,8 @@ def check_group(label, points, ctr, radius, nsample, bq, grouping, reps):
     Forward: bit-exact. Backward: within GROUP_GRAD_RTOL of the plain
     backward computed in float64, relative to the largest gradient, and
     bitwise equal over two runs. `library_ms` is one ``torch.gather``
-    call (forward) and its autograd backward."""
+    call (forward) and its autograd backward. The backward's passes are
+    timed apart by the profiler (`lists_ms`, `fold_ms`, `reduce_ms`)."""
     import types
 
     import torch
@@ -255,6 +366,10 @@ def check_group(label, points, ctr, radius, nsample, bq, grouping, reps):
         points, idx, hit), **kw)
     fwd_lib = cuda_ms(lambda: torch.gather(points, 1, index), **kw)
     bwd_ms = cuda_ms(lambda: cuda.backward(ctx, gout), **kw)
+    # how uneven the backward's work is: hits per point
+    flat = idx.long() + torch.arange(b, device=idx.device)[:, None, None] * n
+    per_point = torch.bincount(flat[hit], minlength=b * n)
+    passes = kernel_times(lambda: cuda.backward(ctx, gout), "group_bwd_")
     bwd_plain = cuda_ms(lambda: torch.autograd.grad(
         plain_out, pg, gout, retain_graph=True), **kw)
     bwd_lib = cuda_ms(lambda: torch.autograd.grad(
@@ -271,13 +386,18 @@ def check_group(label, points, ctr, radius, nsample, bq, grouping, reps):
           f" backward kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f},"
           f" gather backward {bwd_lib:.4f}, bound {bwd_bound:.4f}"
           f" ({bwd_by}), error {err:.2e} of max |g|, repeatable;"
-          f" hit rate {hit.float().mean().item():.3f}")
+          f" hit rate {hit.float().mean().item():.3f}, hits per point"
+          f" mean {per_point.float().mean().item():.2f} max"
+          f" {per_point.max().item()}; backward passes "
+          + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
     fwd = dict(shape=label, ms=fwd_ms, plain_ms=fwd_plain,
                library_ms=fwd_lib, bound_ms=fwd_bound, bound_by=fwd_by,
                max_abs_err=0)
     bwd = dict(shape=label, ms=bwd_ms, plain_ms=bwd_plain,
                library_ms=bwd_lib, bound_ms=bwd_bound, bound_by=bwd_by,
-               max_abs_err=err * scale, rel_err=err)
+               max_abs_err=err * scale, rel_err=err,
+               longest_list=per_point.max().item(),
+               **{f"{k}_ms": v for k, v in passes.items()})
     return fwd, bwd
 
 
@@ -308,6 +428,32 @@ def summarize(name, kernel, source, records, launches, path):
 def _device_us(event) -> float:
     return getattr(event, "self_device_time_total",
                    getattr(event, "self_cuda_time_total", 0.0))
+
+
+def kernel_times(fn, prefix, calls=20):
+    """Device milliseconds per call of `fn`, by kernel, for the kernels
+    whose name holds `prefix` (torch.profiler); the key is the name's part
+    between the prefix and ``_kernel``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    times = {}
+    for _ in range(3):  # a trace now and then comes back without kernels
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and prefix in e.key:
+                name = e.key.split(prefix, 1)[1].split("_kernel", 1)[0]
+                times[name] = (times.get(name, 0.0)
+                               + _device_us(e) / 1e3 / calls)
+        if times:
+            break
+    return times
 
 
 def step_phases(model, opt, criterion, cfg, batch, bn_momentum, reps=5):
@@ -474,6 +620,12 @@ def train_phase(scans, tmp, cfg, kernels, header):
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels_only", action="store_true",
+                        help="stop after the kernels' checks and times"
+                             " (phases 1 and 2): for comparing two trees"
+                             " in one run, not a pass")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
@@ -543,22 +695,21 @@ def main() -> int:
             ("sa1", xyz, 2048), ("sa2", ep["sa1_xyz"], 1024),
             ("sa3", ep["sa2_xyz"], 512), ("sa4", ep["sa3_xyz"], 256),
             ("vote_agg", ep["vote_xyz"], 256)):
-        rec = check_fps(label, x, npoint, fps, reps=5)
+        rec = check_fps(label, x, npoint, fps, reps=5, others=True,
+                        want_cluster=True if label == "sa1" else None)
         rec["paths"] = ("serving",) if label == "sa1" else both
         fps_records.append(rec)
-    edge = xyz.clone()
-    edge[0, N - N // 10:] = 0.0  # padded tail
-    edge[1] = 0.0  # all padding
-    fps_records.append(check_fps("padded", edge, 2048, fps, reps=1))
-    require(bool((fps.furthest_point_sample(edge, 64)[1] == 0).all()),
-            "fps: an all-padding row must give index 0")
-    rec = check_fps("candidates8192", xyz, 2048, fps, reps=3,
-                    candidates=8192)
+    rec = check_fps("candidates8192", xyz, 2048, fps, reps=5,
+                    candidates=8192, others=True, want_cluster=True)
     rec["paths"] = ("training",)
     fps_records.append(rec)
-    odd = torch.randn(3, 257, 3, device=device,
-                      generator=torch.Generator(device).manual_seed(0))
-    fps_records.append(check_fps("n257", odd, 33, fps, reps=3))
+    for label, x, npoint, want_cluster in fps_edge_clouds(xyz, device):
+        fps_records.append(check_fps(label, x, npoint, fps, reps=1,
+                                     want_cluster=want_cluster))
+        if label == "padded":
+            require(bool((fps.furthest_point_sample(x, 64)[1] == 0).all()),
+                    "fps: an all-padding row must give index 0")
+    floor = fps_floor(fps, device)
 
     sa_calls = (
         ("sa1", xyz, pc[..., 3:], ep["sa1_xyz"], 0.2, 64),
@@ -582,6 +733,13 @@ def main() -> int:
         group_fwd.append(fwd)
         group_bwd.append(bwd)
     del ep
+    if args.kernels_only:
+        print(json.dumps({"kernels_only": {
+            "fps": fps_records, "fps_floor_us": {
+                str(k): v for k, v in floor.items()},
+            "ball_query": bq_records, "group_stratified": group_fwd,
+            "group_stratified_backward": group_bwd}}))
+        return 0
 
     # 3. the serving path: the evaluation entry point on the card
     reset(kernels)
@@ -646,6 +804,8 @@ def main() -> int:
                   group_bwd, by_path("group_stratified_backward"),
                   "training"),
     ]
+    kernels_line[0]["serial_floor_us"] = {str(k): v
+                                          for k, v in floor.items()}
     for k in kernels_line:
         require(k["launches"] > 0, f"{k['name']}: not launched on the"
                                    " training path")

@@ -52,7 +52,98 @@ def _fps_cloud(seed, b, n):
     return xyz
 
 
+def _field_key(v):
+    """The CUDA kernel's packed key: a field value (>= 0, or -1) as an
+    unsigned integer that orders the same way."""
+    return np.float32(v).view(np.uint32) ^ np.uint32(0x80000000)
+
+
+def _best(keys, idxs):
+    """Largest key, then lowest index: what `__reduce_max_sync` and then
+    `__reduce_min_sync` give a warp, and the scan of the slots a block."""
+    top = keys.max()
+    return top, idxs[keys == top].min()
+
+
+def _fps_sharded(xyz, npoint, layout):
+    """The CUDA kernel's reduction in numpy, one row: the row is split
+    over `cluster` blocks of `threads` threads with `points` points each
+    (thread t of block r owns r*T*P + p*T + t; indices past n behave as
+    padding), every warp takes its best by the packed key, and the best
+    of all warps' slots, with its coordinates, is the next sample."""
+    cluster, threads, points = layout
+    n = xyz.shape[0]
+    total = cluster * threads * points
+    assert total >= n
+    pts = np.zeros((total, 3), np.float32)
+    pts[:n] = xyz
+    x, y, z = pts.T
+    valid = (x * x + y * y) + z * z > np.float32(1e-3)
+    mind = np.where(valid, np.float32(1e10), np.float32(-1))
+    # owner[i]: the warp (slot) that holds index i
+    i = np.arange(total)
+    block, local = divmod(i, threads * points)
+    slot = block * (threads // 32) + (local % threads) // 32
+    out = np.zeros(npoint, np.int32)
+    ref = pts[0]
+    for j in range(1, npoint):
+        dx, dy, dz = x - ref[0], y - ref[1], z - ref[2]
+        mind = np.minimum(mind, (dx * dx + dy * dy) + dz * dz)
+        keys = _field_key(mind)
+        slots = [_best(keys[slot == w], i[slot == w])
+                 for w in range(slot.max() + 1)]
+        _, out[j] = _best(np.array([k for k, _ in slots]),
+                          np.array([ix for _, ix in slots]))
+        ref = pts[out[j]]  # the slot carries the winner's coordinates
+    return out
+
+
 class TestFPS:
+    @pytest.mark.parametrize("cluster", [1, 4, 16])
+    def test_kernel_reduction_design(self, cluster):
+        """Shards, warps and the packed key give `_fps_torch`'s samples
+        one for one: n no multiple of the cluster, a padded tail, a shard
+        of padding only, duplicated points (ties), an all-padding row."""
+        n, npoint = 1000, 40
+        layout = tfps.shard_plan(cluster, n)
+        assert layout.cluster == cluster
+        assert cluster * layout.threads * layout.points >= n
+        assert layout.threads % 32 == 0 and layout.points in tfps._POINTS
+        shard = layout.threads * layout.points
+        rng = np.random.default_rng(cluster)
+        xyz = make_cloud(rng, 4, n, pad_frac=0.0)
+        xyz[0, n - n // 5:] = 0.0  # padded tail
+        lo = min(shard, 64)
+        xyz[1, lo:2 * lo] = 0.0  # a whole shard (or warp) of padding
+        xyz[2] = xyz[2, np.arange(n) % 50]  # 20 copies of 50 points
+        xyz[3] = 0.0  # all padding
+        want = tfps._fps_torch(torch.from_numpy(xyz), npoint).numpy()
+        for row in range(4):
+            got = _fps_sharded(xyz[row], npoint, layout)
+            np.testing.assert_array_equal(got, want[row])
+        np.testing.assert_array_equal(want[3], 0)
+
+    def test_packed_key_orders_as_keep_best(self):
+        """key(a) > key(b), then the lower index, picks what 'larger
+        value, then lower index' picks, for -1, 0, denormals and 1e10."""
+        values = np.array([-1.0, 0.0, 1e-45, 1e-40, 1.1754944e-38, 1e-3,
+                           1.0, 1e10], np.float32)
+        keys = _field_key(values)
+        assert keys.dtype == np.uint32
+        assert (np.diff(keys.astype(np.int64)) > 0).all()  # same order
+        pairs = [(v, i) for v in values for i in (0, 7, 123456)]
+        for va, ia in pairs:
+            for vb, ib in pairs:
+                plain = va > vb or (va == vb and ia < ib)
+                ka, kb = _field_key(va), _field_key(vb)
+                packed = ka > kb or (ka == kb and ia < ib)
+                assert plain == packed, (va, ia, vb, ib)
+
+    def test_plan_rows_beyond_a_cluster_take_the_capacity_kernel(self):
+        assert tfps.shard_plan(16, 16 * 512 * 16) is not None
+        assert tfps.shard_plan(16, 16 * 512 * 16 + 1) is None
+        assert tfps.shard_plan(1, 512) == tfps.Plan(1, 32, 16)  # one warp
+
     @pytest.mark.parametrize("b,n,m", [(3, 257, 33), (2, 1024, 256),
                                        (3, 2048, 512)])
     def test_plain_matches_xla(self, b, n, m):
@@ -178,39 +269,76 @@ class TestGroupingInterpolate:
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
-def _stratified_case(seed, n, m, s, radius_frac, c):
+def _stratified_case(seed, n, m, s, radius_frac, c, lonely=(0, 0)):
     """Cloud, features and the JAX stratified ball query's (idx, hit),
-    with one centre that has no neighbour at all."""
+    with one centre, `lonely` = (batch row, centre), that has no neighbour
+    at all."""
     rng = np.random.default_rng(seed)
     xyz = make_cloud(rng, 2, n, pad_frac=0.0, scale=1.5)
     centers = xyz[:, :m].copy()
-    centers[0, 0] = 50.0
+    centers[lonely] = 50.0
     r = safe_radius(xyz, centers, radius_frac)
     feats = rng.normal(size=(2, n, c)).astype(np.float32)
     idx, hit = jops.ball_query_stratified(
         jnp.asarray(xyz), jnp.asarray(centers), r, s, return_hit=True)
     gout = rng.normal(size=(2, m, s, c)).astype(np.float32)
+    assert not np.array(hit)[lonely].any()
     return feats, np.array(idx), np.array(hit), gout
 
 
-def _two_pass_backward(gout, idx, hit, n, bucket):
-    """The CUDA kernel's backward design in numpy (fold the slot-filled
-    slots into the first-hit slot's row, then reduce each stratum over
-    its centres in order), to hold the design itself against the
-    scatter-add on the CPU."""
+def _backward_lists(idx, hit, n, bucket):
+    """Pass 1 of the CUDA kernel's backward in numpy: per (batch row, live
+    stratum t) a CSR over the stratum's points. An entry is (centre,
+    is_fold): the centre's grad_out row at slot t if the slot is a hit,
+    and its fold row if slot t is its first hit (slot 0 for a centre with
+    no hit). Entries of a point are in increasing centre, a centre's
+    grad_out row before its fold row."""
+    b, m, s = idx.shape
+    live = -(-n // bucket)
+    assert live <= s
+    starts = np.zeros((b, live, bucket + 1), np.int64)
+    lists = [[None] * live for _ in range(b)]
+    for bi in range(b):
+        any_hit = hit[bi].any(-1)
+        first = np.where(any_hit, hit[bi].argmax(-1), 0)
+        for t in range(live):
+            keyed = []  # (offset in the stratum, 2 * centre + is_fold)
+            for mi in range(m):
+                k = idx[bi, mi, t] - t * bucket
+                if hit[bi, mi, t] or first[mi] == t:
+                    assert 0 <= k < min(bucket, n - t * bucket)
+                if hit[bi, mi, t]:
+                    keyed.append((k, 2 * mi))
+                if first[mi] == t:
+                    keyed.append((k, 2 * mi + 1))
+            keyed.sort()
+            counts = np.bincount([k for k, _ in keyed], minlength=bucket)
+            starts[bi, t, 1:] = np.cumsum(counts)
+            lists[bi][t] = [(key // 2, key % 2) for _, key in keyed]
+    return starts, lists
+
+
+def _three_pass_backward(gout, idx, hit, n, bucket):
+    """The CUDA kernel's backward design in numpy (the lists built once,
+    whatever the channels; the slot-filled slots folded per centre in slot
+    order; each point's list summed in list order), to hold the design
+    itself against the scatter-add on the CPU."""
     b, m, s, c = gout.shape
-    grad = np.zeros((b, n, c), np.float64)
+    starts, lists = _backward_lists(idx, hit, n, bucket)
+    fold = np.zeros((b, m, c), np.float64)
     for bi in range(b):
         for mi in range(m):
-            h = hit[bi, mi]
-            first = int(np.argmax(h)) if h.any() else 0
-            fold = gout[bi, mi][~h].astype(np.float64).sum(0)
-            for t in range(s):
-                if h[t] or t == first:
-                    k = idx[bi, mi, t]
-                    assert t * bucket <= k < (t + 1) * bucket
-                    grad[bi, k] += (gout[bi, mi, t] if h[t] else 0.0) + (
-                        fold if t == first else 0.0)
+            for t in range(s):  # slot order
+                if not hit[bi, mi, t]:
+                    fold[bi, mi] += gout[bi, mi, t]
+    grad = np.zeros((b, n, c), np.float64)
+    for bi in range(b):
+        for p in range(n):  # every point is written
+            t, k = divmod(p, bucket)
+            entries = lists[bi][t][starts[bi, t, k]:starts[bi, t, k + 1]]
+            assert entries == sorted(entries)
+            for mi, is_fold in entries:
+                grad[bi, p] += fold[bi, mi] if is_fold else gout[bi, mi, t]
     return grad
 
 
@@ -246,18 +374,21 @@ class TestGroupStratified:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=1e-5)
 
-    @pytest.mark.parametrize("n,m,s,radius_frac",
-                             [(300, 24, 8, 0.9), (300, 24, 8, 0.25),
-                              (700, 40, 16, 0.5)])
-    def test_kernel_backward_design(self, n, m, s, radius_frac):
+    @pytest.mark.parametrize("n,m,s,radius_frac,lonely",
+                             [(300, 24, 8, 0.9, (0, 0)),
+                              (300, 24, 8, 0.25, (0, 0)),
+                              (700, 40, 16, 0.5, (0, 0)),
+                              (300, 24, 8, 0.5, (1, 5))])
+    def test_kernel_backward_design(self, n, m, s, radius_frac, lonely):
         feats, idx, hit, gout = _stratified_case(n + s, n, m, s,
-                                                 radius_frac, 3)
+                                                 radius_frac, 3, lonely)
+        bucket = tbq._bucket_size(n, s)
+        assert -(-n // bucket) < s  # fewer live strata than slots
         want = np.zeros((2, n, 3))
         for bi in range(2):
             np.add.at(want[bi], idx[bi].reshape(-1),
                       gout[bi].reshape(-1, 3).astype(np.float64))
-        got = _two_pass_backward(gout, idx, hit, n,
-                                 tbq._bucket_size(n, s))
+        got = _three_pass_backward(gout, idx, hit, n, bucket)
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
     def test_cpu_tensor_takes_plain_version(self):
