@@ -4,14 +4,48 @@
 // Replaces the Pallas TPU kernel `_group_bucketed_kernel` in
 // backtoreality_tpu/ops/grouping.py (launched by `_group_bucketed_pallas`,
 // with its custom VJP and the first-hit repair of
-// `group_points_stratified`).
+// `group_points_stratified`), and, in its fused entry, the localize step
+// that the set-abstraction layer runs around it
+// (backtoreality_tpu/nn/sa_fp.py, `_group`): the centre subtracted from the
+// grouped coordinates, the division by the radius and the concatenation
+// with the grouped features.
 //
-// Forward: grouped[b, m, s, :] = points[b, idx[b, m, s], :], for any
-// channel count C. The TPU kernel builds a one-hot per stratum and reduces
-// it against the stratum's points (a matrix-unit form of a gather), and
-// then repairs the slot-filled entries from the first-hit slot; the result
-// is this gather, which a GPU does directly. It is a copy, so it equals
-// the plain version bit for bit.
+// Forward, two entries into one kernel (`group_rows_kernel`):
+//   group:    out[b, m, s, :] = points[b, idx[b, m, s], :], any width C;
+//   localize: out[b, m, s, 0:3] = (xyz[b, idx] - centre[b, m]) / radius,
+//             out[b, m, s, 3:]  = features[b, idx]  (features may be absent).
+// The TPU kernel builds a one-hot per stratum and reduces it against the
+// stratum's points (a matrix-unit form of a gather), and then repairs the
+// slot-filled entries from the first-hit slot; the result is this gather,
+// which a GPU does directly. The copy equals the plain version bit for
+// bit, and so do the three local coordinates: one IEEE subtraction and one
+// IEEE division each, in that order.
+//
+// What bounds the forward: bytes, and of those the output's (B*M*S*C
+// floats written once; the point rows are picked by many centres and come
+// from L2). The first version gave every element a thread, which divided
+// by the channel count, read the row's index again and then its value, a
+// dependent chain, and it took float4s only where C % 4 == 0: never in the
+// model past the first layer, whose rows are xyz and features side by
+// side, 131 or 259 floats. And the layer then read and wrote the whole
+// output again to localize it, after a pass that put xyz and features
+// side by side for the gather. Now a group of lanes owns an output row: a
+// warp, or 8 or 16 lanes where the row is narrower, and one thread where
+// it is 4 floats or fewer (the first layer, `group_narrow_kernel`: its
+// loads together, one 16-byte store). A block owns a centre (b, m), so no
+// thread divides; a
+// group reads its row's index once and copies the row with consecutive
+// lanes on consecutive addresses, up to 8 loads in flight before the
+// first store. The fused entry reads xyz and features as two inputs (no
+// concatenation before it, none after it) and computes the three local
+// coordinates in the lanes that copy them. Stores are 4 bytes a lane,
+// coalesced: an output row of 131 or 259 floats starts at any 4-byte
+// offset, so a 16-byte store would need the row's values shifted across
+// lanes; consecutive lanes on consecutive words fill every 32-byte sector
+// but a row's first and last, and L2 merges those with the neighbouring
+// rows' before they reach device memory. The loads are 4 bytes a lane for
+// the same reason (the output word a lane stores is the input word it
+// loaded, shifted by the three coordinates), and come from L1 and L2.
 //
 // Backward: grad_points[b, n, :] = sum of grad_out[b, m, s, :] over every
 // (m, s) with idx[b, m, s] == n, computed without float atomics, in a fixed
@@ -48,6 +82,15 @@
 //      zero where nothing lands. No shared memory, no block barrier: the
 //      hardware balances points with long lists against points with none.
 //
+// The backward of the fused entry is the same three passes, unchanged, over
+// the whole grad_out row (3 + C channels), so no elementwise pass runs over
+// grad_out before them; the result's channels 3 and on are the gradient of
+// the features. Where xyz needs a gradient (vote clustering), the sums of
+// the first three channels are multiplied by 1 / radius in place, and where
+// the centres need one, -(1 / radius) times the sum over a centre's slots of
+// those three channels is taken in slot order: both by one small kernel,
+// `group_localize_tail_kernel`, launched only when either is asked for.
+//
 // The channels are cut into ceil(C / 32) slices of equal width, a lane
 // each: C = 131 is 5 slices of 27, and no slice is left with 3 channels. A
 // slice of 16 channels or fewer takes 16, 8 or 4 lanes in the reduce, so a
@@ -60,21 +103,15 @@
 // ball query (slot-filled with the first hit, index 0 for a centre with no
 // hit); bucket * nsample >= n.
 //
-// What bounds it: bytes. Both directions do no arithmetic worth counting
-// (one add per gradient element); the forward reads idx and writes
-// B*M*S*C floats, the backward reads grad_out, idx and hit once and writes
-// B*N*C floats. The forward's point rows are re-read through L1/L2 (the
-// same points are picked by many centres). The first version of the
-// backward rebuilt the lists in every 32-channel block (5 to 9 times per
-// stratum), on one warp, and left a third to three quarters of its blocks
-// without a live stratum; the lists are now built once, by all warps, and
-// the passes that move the bytes are flat grids of independent warps.
-// What keeps the reduce from its bound is latency, not bytes: a group's
-// segment, entries and rows are three dependent trips to memory, and the
-// longest list of a stratum is a chain of rounds on one warp per slice.
-// Index math is 32-bit in the forward where every offset fits (all of the
-// model's shapes), 64-bit otherwise and in the backward; the forward moves
-// a float4 per thread when C % 4 == 0.
+// What bounds the backward: bytes (one add per gradient element); it reads
+// grad_out, idx and hit once and writes B*N*C floats. The first version
+// rebuilt the lists in every 32-channel block (5 to 9 times per stratum),
+// on one warp, and left a third to three quarters of its blocks without a
+// live stratum; the lists are now built once, by all warps, and the passes
+// that move the bytes are flat grids of independent warps. What keeps the
+// reduce from its bound is latency, not bytes: a group's segment, entries
+// and rows are three dependent trips to memory, and the longest list of a
+// stratum is a chain of rounds on one warp per slice.
 
 #include <cuda_runtime.h>
 
@@ -83,23 +120,104 @@
 namespace {
 
 constexpr int kThreads = 256;
-// below this, an offset plus a grid's stride still fits in an int
-constexpr long long kInt32Limit = (1LL << 31) - (1LL << 24);
+constexpr int kCopyInFlight = 8;  // loads of a row before its first store
 
-// T: float, or float4 (c then counts float4s); I: the index type, int
-// when every offset fits, else long long
-template <typename T, typename I>
+// Forward for rows wider than 4 floats: a group of G lanes per output row
+// (b, m, s), a block per centre (b, m). The row is `hw` head channels (0,
+// or the 3 coordinates of `head` (b, n, 3), localized when kLocal: centre
+// (b, m, 3) subtracted, divided by the radius) followed by the `c`
+// channels of `feats` (b, n, c).
+template <int G, bool kLocal>
 __global__ void __launch_bounds__(kThreads)
-    group_fwd_kernel(const T* __restrict__ points,
-                     const int* __restrict__ idx, I rows_per_b, I n, I c,
-                     I total, T* __restrict__ out) {
-  for (I e = (I)blockIdx.x * kThreads + threadIdx.x; e < total;
-       e += (I)gridDim.x * kThreads) {
-    const I row = e / c;  // (b, m, s) flattened
-    const I ch = e - row * c;
-    const I b = row / rows_per_b;
-    const I p = __ldg(idx + row);
-    out[e] = __ldg(points + (b * n + p) * c + ch);
+    group_rows_kernel(const float* __restrict__ head,
+                      const float* __restrict__ feats,
+                      const float* __restrict__ centre,
+                      const int* __restrict__ idx, int n, int m, int nsample,
+                      int hw, int c, float radius, float* __restrict__ out) {
+  const int b = blockIdx.y;
+  const long long bm = (long long)b * m + blockIdx.x;
+  const int lane = threadIdx.x % G;
+  const int width = hw + c;
+  float cv = 0.f;  // hw <= G: a head channel is always its lane's first
+  if (kLocal && lane < hw) cv = __ldg(centre + bm * 3 + lane);
+  for (int s = threadIdx.x / G; s < nsample; s += kThreads / G) {
+    const long long row = bm * nsample + s;
+    const long long src = (long long)b * n + __ldg(idx + row);
+    const float* h = head + src * hw;
+    const float* f = feats + src * c;
+    float* o = out + row * width;
+    for (int ch0 = lane; ch0 < width; ch0 += G * kCopyInFlight) {
+      float v[kCopyInFlight];
+#pragma unroll
+      for (int u = 0; u < kCopyInFlight; ++u) {
+        const int ch = ch0 + u * G;
+        if (ch < hw) {
+          v[u] = __ldg(h + ch);
+          if (kLocal) v[u] = __fdiv_rn(__fsub_rn(v[u], cv), radius);
+        } else if (ch < width) {
+          v[u] = __ldg(f + (ch - hw));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kCopyInFlight; ++u)
+        if (ch0 + u * G < width) o[ch0 + u * G] = v[u];
+    }
+  }
+}
+
+// Forward for rows of up to 4 floats (the first layer: xyz and a height):
+// a thread per row, its loads in flight together and one 16-byte store
+// where the row is 4 floats (`vec_out`; `vec_in` where it is also read as
+// one, the unfused entry). threadIdx.x walks a centre's slots and
+// threadIdx.y the block's centres, so no thread divides.
+template <bool kLocal>
+__global__ void __launch_bounds__(kThreads)
+    group_narrow_kernel(const float* __restrict__ head,
+                        const float* __restrict__ feats,
+                        const float* __restrict__ centre,
+                        const int* __restrict__ idx, int n, int m,
+                        int nsample, int hw, int c, float radius,
+                        bool vec_in, bool vec_out, float* __restrict__ out) {
+  const int b = blockIdx.y;
+  const int mi = blockIdx.x * blockDim.y + threadIdx.y;
+  if (mi >= m) return;
+  const long long bm = (long long)b * m + mi;
+  const int width = hw + c;
+  float cv[3] = {0.f, 0.f, 0.f};
+  if (kLocal) {  // hw == 3
+#pragma unroll
+    for (int k = 0; k < 3; ++k) cv[k] = __ldg(centre + bm * 3 + k);
+  }
+  for (int s = threadIdx.x; s < nsample; s += blockDim.x) {
+    const long long row = bm * nsample + s;
+    const long long src = (long long)b * n + __ldg(idx + row);
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (vec_in) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(feats) + src);
+      v[0] = t.x;
+      v[1] = t.y;
+      v[2] = t.z;
+      v[3] = t.w;
+    } else {
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch)
+        if (ch < width)
+          v[ch] = ch < hw ? __ldg(head + src * hw + ch)
+                          : __ldg(feats + src * c + (ch - hw));
+    }
+    if (kLocal) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        v[k] = __fdiv_rn(__fsub_rn(v[k], cv[k]), radius);
+    }
+    if (vec_out) {
+      reinterpret_cast<float4*>(out)[row] =
+          make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch)
+        if (ch < width) out[row * width + ch] = v[ch];
+    }
   }
 }
 
@@ -306,7 +424,8 @@ __device__ __forceinline__ void read_rows(const int (&entry)[R],
 
 // pass 3: per (b, kPoints points, slice), the ordered sum of each point's
 // list, by a group of G lanes: a warp, or where the slice is narrow (C = 4
-// at the first layer) 16, 8 or 4 lanes. A round reads kEntries entries of each point, then their rows:
+// at the first layer) 16, 8 or 4 lanes. A round reads kEntries entries of
+// each point, then their rows:
 // kRound loads in flight while the lists are short, as most are. A large
 // radius sends most centres to a stratum's first few points, whose lists
 // run to a hundred and more; a warp that holds such a list sums its
@@ -379,27 +498,73 @@ __global__ void __launch_bounds__(kThreads, 4)
     if (ok && p0 + u < n) grad[((long long)b * n + p0 + u) * c + ch] = acc[u];
 }
 
-int grid_for(long long total) {
-  long long blocks = (total + kThreads - 1) / kThreads;
-  const long long cap = 132LL * 16;  // 16 blocks per SM, grid-stride after
-  if (blocks > cap) blocks = cap;
-  return (int)(blocks < 1 ? 1 : blocks);
+// What the fused entry's backward adds to the three passes, one small
+// kernel over two ranges of threads. The first `heads` = b * n * 3 threads
+// (0 when xyz needs no gradient) multiply grad[b, n, 0:3], the sums of
+// grad_out's three coordinate channels, by `scale` = 1 / radius in place:
+// the factor once on each sum, where a product on every row read kept the
+// reduce's loads from going out together. The next `centres` = b * m * 3
+// threads (0 when the centres need no gradient) write gcentre[b, m, k] =
+// -scale * sum over s, in slot order, of gout[b, m, s, k].
+__global__ void __launch_bounds__(kThreads)
+    group_localize_tail_kernel(const float* __restrict__ gout,
+                               long long heads, long long centres,
+                               int nsample, int c, float scale,
+                               float* __restrict__ grad,
+                               float* __restrict__ gcentre) {
+  long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t < heads) {
+    const long long row = t / 3;
+    grad[row * c + (t - row * 3)] *= scale;
+    return;
+  }
+  t -= heads;
+  if (t >= centres) return;
+  const long long row = t / 3;
+  const float* g = gout + row * nsample * c + (t - row * 3);
+  float acc = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < nsample; ++s) acc += __ldg(g + (long long)s * c);
+  gcentre[t] = -(scale * acc);
 }
 
-// the forward with c counted in elements of T
-template <typename T>
-int launch_fwd(const float* points, const int* idx, int b, int n, int m,
-               int nsample, int c, float* out, cudaStream_t st) {
-  const long long total = (long long)b * m * nsample * c;
-  const int grid = grid_for(total);
-  const T* pts = reinterpret_cast<const T*>(points);
-  T* dst = reinterpret_cast<T*>(out);
-  if (total < kInt32Limit && (long long)b * n * c < kInt32Limit)
-    group_fwd_kernel<T, int><<<grid, kThreads, 0, st>>>(
-        pts, idx, m * nsample, n, c, (int)total, dst);
-  else
-    group_fwd_kernel<T, long long><<<grid, kThreads, 0, st>>>(
-        pts, idx, (long long)m * nsample, n, c, total, dst);
+// the forward of both entries: a block per centre, a group of lanes per row
+int launch_rows(const float* head, const float* feats, const float* centre,
+                const int* idx, int b, int n, int m, int nsample, int hw,
+                int c, float radius, float* out, cudaStream_t st) {
+  if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || nsample <= 0 || c < 0 ||
+      hw + c <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int width = hw + c;
+  const bool local = centre != nullptr;
+  if (width <= 4) {
+    const bool vec_out =
+        width == 4 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    const bool vec_in =
+        vec_out && hw == 0 && reinterpret_cast<uintptr_t>(feats) % 16 == 0;
+    const int slots = nsample < kThreads ? nsample : kThreads;
+    const dim3 block(slots, kThreads / slots);
+    const dim3 grid((m + block.y - 1) / block.y, b);
+    if (local)
+      group_narrow_kernel<true><<<grid, block, 0, st>>>(
+          head, feats, centre, idx, n, m, nsample, hw, c, radius, vec_in,
+          vec_out, out);
+    else
+      group_narrow_kernel<false><<<grid, block, 0, st>>>(
+          head, feats, centre, idx, n, m, nsample, hw, c, radius, vec_in,
+          vec_out, out);
+    return (int)cudaGetLastError();
+  }
+  const int lanes = width > 16 ? 32 : width > 8 ? 16 : 8;
+  decltype(&group_rows_kernel<32, true>) kernel =
+      lanes == 32   ? (local ? &group_rows_kernel<32, true>
+                             : &group_rows_kernel<32, false>)
+      : lanes == 16 ? (local ? &group_rows_kernel<16, true>
+                             : &group_rows_kernel<16, false>)
+                    : (local ? &group_rows_kernel<8, true>
+                             : &group_rows_kernel<8, false>);
+  kernel<<<dim3(m, b), kThreads, 0, st>>>(head, feats, centre, idx, n, m,
+                                          nsample, hw, c, radius, out);
   return (int)cudaGetLastError();
 }
 
@@ -415,43 +580,16 @@ long long warp_blocks(long long warps) {
   return blocks < (1LL << 31) ? blocks : 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// points (b, n, c) f32 contiguous; idx (b, m, nsample) int32 contiguous,
-// each in [0, n); out (b, m, nsample, c) f32. Returns the cudaError_t of
-// the launch.
-int group_stratified_fwd_launch(const float* points, const int* idx,
-                                int b, int n, int m, int nsample, int c,
-                                float* out, void* stream) {
-  if (b <= 0 || n <= 0 || m <= 0 || nsample <= 0 || c <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uintptr_t base = reinterpret_cast<uintptr_t>(points) |
-                         reinterpret_cast<uintptr_t>(out);
-  if (c % 4 == 0 && base % 16 == 0)
-    return launch_fwd<float4>(points, idx, b, n, m, nsample, c / 4, out,
-                              st);
-  return launch_fwd<float>(points, idx, b, n, m, nsample, c, out, st);
-}
-
-// gout (b, m, nsample, c) f32, idx (b, m, nsample) int32, hit (b, m,
-// nsample) bool, all contiguous. Scratch: start (b, live, bucket + 1) and
-// list (b, live, 2 m) int32, with live = ceil(n / bucket) strata, and fold
-// (b, m, c) f32. grad (b, n, c) f32 is written in full. Launches the
-// three passes on `stream`; returns the first nonzero cudaError_t.
-int group_stratified_bwd_launch(const float* gout, const int* idx,
-                                const unsigned char* hit, int b, int n,
-                                int m, int nsample, int bucket, int c,
-                                int* start, int* list, float* fold,
-                                float* grad, void* stream) {
+// the three passes of the backward
+int launch_bwd(const float* gout, const int* idx, const unsigned char* hit,
+               int b, int n, int m, int nsample, int bucket, int c,
+               int* start, int* list, float* fold, float* grad,
+               cudaStream_t st) {
   if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || nsample <= 0 || c <= 0 ||
       bucket <= 0 || bucket % kPoints != 0 ||
       (long long)bucket * nsample < n || m > kOffsetMask ||
       bucket > kOffsetMask)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int live = (n + bucket - 1) / bucket;
   // slices of equal width: C = 131 is 5 slices of 27 channels
   const int nslices = (c + 31) / 32;
@@ -489,6 +627,73 @@ int group_stratified_bwd_launch(const float* gout, const int* idx,
   reduce<<<(unsigned)reduce_blocks, kThreads, 0, st>>>(
       gout, fold, start, list, quads, n, m, nsample, bucket, live, c,
       nslices, width, grad);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// points (b, n, c) f32 contiguous; idx (b, m, nsample) int32 contiguous,
+// each in [0, n); out (b, m, nsample, c) f32. Returns the cudaError_t of
+// the launch.
+int group_stratified_fwd_launch(const float* points, const int* idx,
+                                int b, int n, int m, int nsample, int c,
+                                float* out, void* stream) {
+  return launch_rows(nullptr, points, nullptr, idx, b, n, m, nsample, 0, c,
+                     1.f, out, static_cast<cudaStream_t>(stream));
+}
+
+// The fused entry. xyz (b, n, 3), features (b, n, c) or null with c == 0,
+// new_xyz (b, m, 3), all f32 contiguous; idx as above; out (b, m, nsample,
+// 3 + c): channels 0-2 (xyz[b, idx] - new_xyz[b, m]) / radius, the rest
+// features[b, idx]. Returns the cudaError_t of the launch.
+int group_localize_fwd_launch(const float* xyz, const float* features,
+                              const float* new_xyz, const int* idx, int b,
+                              int n, int m, int nsample, int c, float radius,
+                              float* out, void* stream) {
+  if (xyz == nullptr || new_xyz == nullptr || (c > 0 && features == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return launch_rows(xyz, features, new_xyz, idx, b, n, m, nsample, 3, c,
+                     radius, out, static_cast<cudaStream_t>(stream));
+}
+
+// gout (b, m, nsample, c) f32, idx (b, m, nsample) int32, hit (b, m,
+// nsample) bool, all contiguous. Scratch: start (b, live, bucket + 1) and
+// list (b, live, 2 m) int32, with live = ceil(n / bucket) strata, and fold
+// (b, m, c) f32. grad (b, n, c) f32 is written in full. Launches the
+// three passes on `stream`; returns the first nonzero cudaError_t.
+int group_stratified_bwd_launch(const float* gout, const int* idx,
+                                const unsigned char* hit, int b, int n,
+                                int m, int nsample, int bucket, int c,
+                                int* start, int* list, float* fold,
+                                float* grad, void* stream) {
+  return launch_bwd(gout, idx, hit, b, n, m, nsample, bucket, c, start, list,
+                    fold, grad, static_cast<cudaStream_t>(stream));
+}
+
+// The backward of the fused entry: as above over the c = 3 + C channels of
+// gout, so that grad[..., 3:] is the gradient of the features; with
+// `scale_xyz`, grad[..., 0:3] is multiplied by `inv_radius` and is the
+// gradient of xyz (without it those three channels are sums nobody reads).
+// gcentre (b, m, 3), if not null, receives the gradient of new_xyz.
+int group_localize_bwd_launch(const float* gout, const int* idx,
+                              const unsigned char* hit, int b, int n, int m,
+                              int nsample, int bucket, int c,
+                              float inv_radius, int* start, int* list,
+                              float* fold, float* grad, int scale_xyz,
+                              float* gcentre, void* stream) {
+  if (c < 3) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_bwd(gout, idx, hit, b, n, m, nsample, bucket, c,
+                             start, list, fold, grad, st);
+  const long long heads = scale_xyz ? (long long)b * n * 3 : 0;
+  const long long centres = gcentre != nullptr ? (long long)b * m * 3 : 0;
+  if (err != 0 || heads + centres == 0) return err;
+  const long long blocks = (heads + centres + kThreads - 1) / kThreads;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  group_localize_tail_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+      gout, heads, centres, nsample, c, inv_radius, grad, gcentre);
   return (int)cudaGetLastError();
 }
 

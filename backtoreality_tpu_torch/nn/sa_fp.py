@@ -6,7 +6,8 @@ Counterpart of ``backtoreality_tpu/nn/sa_fp.py`` (reference
 
 * FPS and stratified ball query from the op library (CUDA kernels on the
   card);
-* grouping -> centre-subtract -> /radius -> concat xyz -> SharedMLP ->
+* grouping -> centre-subtract -> /radius -> concat xyz (one op,
+  `ops.group_localize_stratified`, one kernel on the card) -> SharedMLP ->
   max-pool over the neighbourhood.
 
 Only what VoteNet runs is ported: the stratified query, radius-normalized
@@ -49,10 +50,8 @@ class SAModuleVotes(nn.Module):
         """Ball-query + group + localize: (B, npoint, nsample, 3[+C])."""
         idx, hit = ops.ball_query_stratified(
             xyz, new_xyz, self.radius, self.nsample, return_hit=True)
-        points = xyz if features is None else torch.cat([xyz, features], -1)
-        grouped = ops.group_points_stratified(points, idx, hit)
-        local_xyz = (grouped[..., :3] - new_xyz[:, :, None, :]) / self.radius
-        return torch.cat([local_xyz, grouped[..., 3:]], -1)
+        return ops.group_localize_stratified(xyz, features, new_xyz, idx,
+                                             hit, self.radius)
 
     def forward(self, xyz, features=None, inds=None):
         """xyz (B,N,3); features (B,N,C) or None; inds optional (B,npoint).

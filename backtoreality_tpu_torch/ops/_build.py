@@ -100,6 +100,19 @@ class Kernel:
         return self._lib
 
 
+class Entry:
+    """A further entry into a kernel's library (a second C function over
+    the same device code), with launch counts of its own."""
+
+    def __init__(self, kernel: Kernel, name: str,
+                 replaces: str | None = None):
+        self.kernel = kernel
+        self.name = name
+        self.replaces = kernel.replaces if replaces is None else replaces
+        self.launches = 0
+        self.backward_launches = 0
+
+
 def build_all(kernels) -> dict[str, str]:
     """Build every kernel in parallel (one nvcc each, all started
     together); returns nvcc's output by kernel name ('' if cached)."""

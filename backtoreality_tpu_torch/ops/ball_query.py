@@ -15,16 +15,26 @@ Two implementations of one function:
 * :func:`_ball_query_stratified_torch` — the plain version, chunked
   dense distances in the expanded form (counterpart of
   ``_ball_query_stratified_xla`` and ``_stratified_math``);
-* :func:`_ball_query_stratified_cuda` — the hand-written kernel
-  ``csrc/ball_query.cu``, which tests ``|c - p|^2 < r^2`` directly.
+* :func:`_ball_query_stratified_cuda` — the hand-written kernels of
+  ``csrc/ball_query.cu``, which test ``|c - p|^2 < r^2`` directly or, where
+  a lane holds points, as ``|p|^2 - 2 c.p < r^2 - |c|^2``.
 
 They can disagree only on points within rounding error of the radius.
 The exact first-k ``ball_query`` (``query_mode=exact``) is not ported.
+
+How a CUDA call is laid out on the card is decided by its shape alone
+(:func:`plan`): which of the source's two mappings it takes (a lane holds
+centres and the points come from shared memory, or a lane holds points
+and the warp finds the first hit by vote), the centres and warps of a
+block, and the centres a lane holds. :func:`tiles` lists every tile the
+plan may pick for a shape.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -36,16 +46,67 @@ KERNEL = _build.Kernel(
              " (_bq_stratified_kernel)",
     signatures={
         # xyz and its two strides, centres and theirs, b, n, m, r^2,
-        # nsample, bucket, idx, hit, stream
+        # nsample, bucket, the tile (mapping, centres, warps, per_lane),
+        # idx, hit, counter of executed tests (or null), stream
         "bq_stratified_launch": [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p],
+            ctypes.c_void_p, ctypes.c_void_p],
     })
-_MAX_SLOTS = 64  # kMaxSlots in csrc/ball_query.cu
 _CHUNK = 256  # centres per dense (B, chunk, N) distance block
+
+# What csrc/ball_query.cu is built for (its constants of the same names).
+_MAX_SLOTS = 64  # kMaxSlots
+_POINT_CHUNK = 128  # kChunk: points staged, or held by a warp, at a time
+_MAX_WARPS = 16  # kMaxWarps
+_MAX_CENTRES = 256  # kMaxCentres, per block
+_MAX_POINT_CENTRES = 32  # kMaxPointCentres: the same where lanes hold points
+_MAX_SMEM = 99 * 1024  # kMaxSmem, bytes per block
+_PER_LANE = (1, 2, 4)  # centres a lane can hold
+_SMS = 132  # streaming multiprocessors of an H100
+# distance tests of a row (centres x points) from which lanes on centres
+# pay where a bucket is one chunk
+_CENTRE_LANES_WORK = 1 << 20
+
+CENTRES_IN_LANES = 0  # points from shared memory, several centres a lane
+POINTS_IN_LANES = 1  # a vote per 128 points, centres from shared memory
+
+
+class Plan(NamedTuple):
+    """The tile of one ball-query call: the mapping, the centres and warps
+    of a block, and the centres a lane holds (1 where lanes hold
+    points)."""
+
+    mapping: int
+    centres: int
+    warps: int
+    per_lane: int
+
+
+def smem_bytes(tile: Plan, nsample: int) -> int:
+    """Shared memory of a block, as the launcher computes it: the table of
+    first hits and the fills, and the staged chunks (two buffers per bucket
+    group) or the centres."""
+    table = 4 * (tile.centres * (nsample + 1) + tile.centres)
+    if tile.mapping == CENTRES_IN_LANES:
+        groups = tile.centres // (32 * tile.per_lane)
+        return table + (tile.warps // groups) * 2 * 3 * _POINT_CHUNK * 4
+    return table + 16 * tile.centres
+
+
+def blocks(tile: Plan, b: int, m: int) -> int:
+    return b * -(-m // tile.centres)
+
+
+def _pow2_floor(v: int) -> int:
+    return 1 << (max(v, 1).bit_length() - 1)
+
+
+def _pow2_ceil(v: int) -> int:
+    return 1 << (max(v, 1) - 1).bit_length()
 
 
 def _bucket_size(n: int, nsample: int) -> int:
@@ -54,6 +115,69 @@ def _bucket_size(n: int, nsample: int) -> int:
     bucket layout is part of the stratified semantics — the XLA
     implementation and the numpy oracle use the same width."""
     return max(-(-(-(-n // nsample)) // 128) * 128, 128)
+
+
+@functools.lru_cache(maxsize=None)
+def tiles(b: int, n: int, m: int, nsample: int) -> tuple[Plan, ...]:
+    """Every tile :func:`plan` may pick for a (b, n, m, nsample) call, all
+    inside the limits `csrc/ball_query.cu` checks. Lanes on centres: 1, 2
+    or 4 centres a lane, one or two centre groups a block, and as many
+    bucket groups as make 8 warps (fewer where fewer buckets hold a
+    point). Lanes on points: 4 to 32 centres a block, a warp per live
+    bucket up to 16 (at the first layer's shape 16 warps a block are a
+    tenth faster than 8 on an H100). No tile is wider than the centres of
+    a row."""
+    del b  # the tiles depend on a row's shape alone
+    live = -(-n // _bucket_size(n, nsample))  # buckets that hold a point
+    widest = min(max(32, _pow2_ceil(m)), _MAX_CENTRES)
+    found = []
+    for per_lane in _PER_LANE:
+        for groups in (1, 2):
+            centres = 32 * per_lane * groups
+            if centres <= widest:
+                bucket_groups = min(8 // groups, _pow2_floor(live))
+                found.append(Plan(CENTRES_IN_LANES, centres,
+                                  groups * bucket_groups, per_lane))
+    for centres in (4, 8, 16, 32):
+        if centres <= min(widest, _MAX_POINT_CENTRES):
+            found.append(Plan(POINTS_IN_LANES, centres,
+                              min(_MAX_WARPS, live), 1))
+    return tuple(t for t in found if smem_bytes(t, nsample) <= _MAX_SMEM)
+
+
+def _widest_filling(options, b: int, m: int) -> Plan | None:
+    """Of `options`, the tile with the most centres a block that still
+    gives every SM two blocks; where none does, one block; else None."""
+    for fill in (2 * _SMS, _SMS):
+        enough = [t for t in options if blocks(t, b, m) >= fill]
+        if enough:
+            return max(enough, key=lambda t: t.centres)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, n: int, m: int, nsample: int) -> Plan:
+    """The tile of a (b, n, m, nsample) call.
+
+    Lanes on points as the rule: a centre leaves a bucket at its own first
+    hit, which saves a third of the tests where a bucket is several chunks
+    (0.209 against 0.366 ms at the first layer, 40000 points in buckets of
+    640, on an H100). Where a bucket is one chunk that exit never comes
+    early, and once a row has `_CENTRE_LANES_WORK` tests the cheaper test
+    of lanes on centres wins (0.017 against 0.019 ms at 2048 points and
+    1024 centres a row); below that the two are level or lanes on points
+    ahead. Either way the widest tile that fills the card, and where the
+    centres are too few for that, the narrowest tile of lanes on points."""
+    options = tiles(b, n, m, nsample)
+    if (_bucket_size(n, nsample) == _POINT_CHUNK
+            and m * n >= _CENTRE_LANES_WORK):
+        tile = _widest_filling([t for t in options
+                                if t.mapping == CENTRES_IN_LANES], b, m)
+        if tile is not None:
+            return tile
+    points = [t for t in options if t.mapping == POINTS_IN_LANES]
+    return (_widest_filling(points, b, m)
+            or min(points, key=lambda t: t.centres))
 
 
 def _sq3_sum(v: torch.Tensor) -> torch.Tensor:
@@ -113,7 +237,12 @@ def _ball_query_stratified_torch(xyz, new_xyz, radius, nsample):
     return torch.cat(outs, dim=1), torch.cat(hits, dim=1)
 
 
-def _ball_query_stratified_cuda(xyz, new_xyz, radius, nsample):
+def _ball_query_stratified_cuda(xyz, new_xyz, radius, nsample,
+                                tile: Plan | None = None, counter=None):
+    """The kernel on CUDA tensors; `tile` overrides :func:`plan` (for
+    checks and measurements of the other tiles), and `counter`, a one-
+    element int64 CUDA tensor, has the distance tests executed added to
+    it."""
     for name, t in (("xyz", xyz), ("new_xyz", new_xyz)):
         if t.dtype != torch.float32:
             raise TypeError(f"ball query kernel takes float32 {name},"
@@ -130,13 +259,17 @@ def _ball_query_stratified_cuda(xyz, new_xyz, radius, nsample):
     new_xyz = new_xyz if new_xyz.stride(-1) == 1 else new_xyz.contiguous()
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
+    if tile is None:
+        tile = plan(b, n, m, nsample)
     idx = torch.empty(b, m, nsample, dtype=torch.int32, device=xyz.device)
     hit = torch.empty(b, m, nsample, dtype=torch.bool, device=xyz.device)
     err = KERNEL.lib.bq_stratified_launch(
         _build.ptr(xyz), xyz.stride(0), xyz.stride(1),
         _build.ptr(new_xyz), new_xyz.stride(0), new_xyz.stride(1),
         b, n, m, radius * radius, nsample, _bucket_size(n, nsample),
-        _build.ptr(idx), _build.ptr(hit), _build.stream_of(xyz))
+        *tile, _build.ptr(idx), _build.ptr(hit),
+        None if counter is None else _build.ptr(counter),
+        _build.stream_of(xyz))
     _build.check(err, "bq_stratified_launch")
     KERNEL.launches += 1
     return idx, hit

@@ -16,28 +16,35 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    all-padding row, one scan alone, 50000 points, duplicated points whose
    ties fall across blocks, lanes and registers, shards of padding only,
    and a row that takes the capacity kernel; stratified ball query exact
-   except at points within rounding error of the radius; stratified
-   grouping forward bit-exact and its backward within 1e-5 (relative to
-   the largest gradient) of the plain backward in float64 and bitwise
-   equal over two runs, its three passes timed apart. Kernel, plain and
-   library times are medians of CUDA events, with the host's launches
-   queued ahead of the device so that they time device work.
+   except at points within rounding error of the radius, in every tile
+   its plan may pick (both mappings, timed, with the tests executed
+   beside the tests the data needs), plus off the paths M = 33 and 257, N
+   below one bucket and no multiple of it, 1, 16 and 64 slots, a centre
+   with no hit and one whose only hit is the last point, duplicated
+   points, B = 1 and a strided xyz; stratified grouping forward bit-exact
+   and its backward within 1e-5 (relative to the largest gradient) of the
+   plain backward in float64 and bitwise equal over two runs, its three
+   passes timed apart; the grouping fused with the localize step the same
+   way (forward bit-exact with and without features; gradients of xyz,
+   features and centres). Kernel, plain and library times are medians of
+   CUDA events, with the host's launches queued ahead of the device so
+   that they time device work.
 3. Serving path: reset the launch counters, run the evaluation entry
    point (``backtoreality_tpu_torch.train.evaluate.main``) over 16
    synthetic scans at B=8, N=40000 on ``cuda``, check that FPS, ball
-   query and grouping each launched 5 times per batch and that the mAP
-   numbers are finite, time the forward per batch, and print its device
-   time by kernel (``torch.profiler``).
+   query and the fused grouping each launched 5 times per batch and that
+   the mAP numbers are finite, time the forward per batch, and print its
+   device time by kernel (``torch.profiler``).
 4. Training path: reset the counters, run the FSB entry point
    (``backtoreality_tpu_torch.train.votenet_fsb.main``) for 2 epochs
    over the 16 scans at B=8, N=40000, ``--fps_candidates 8192`` (4 steps
    and one evaluation); check finite losses, the launch counts (5 per
-   forward for FPS, ball query and grouping; 4 grouping backwards per
-   step) and that ``evaluate.main`` loads the checkpoint. Then time the
-   train step at ``bench.py``'s configuration (a fixed batch, Adam at lr
-   1e-3, BN momentum 0.5), print its device time by kernel, and print
-   (without gating) whether two steps from one state give bitwise-equal
-   parameters.
+   forward for FPS, ball query and the fused grouping; 4 grouping
+   backwards per step) and that ``evaluate.main`` loads the checkpoint.
+   Then time the train step at ``bench.py``'s configuration (a fixed
+   batch, Adam at lr 1e-3, BN momentum 0.5), print its device time by
+   kernel, and print (without gating) whether two steps from one state
+   give bitwise-equal parameters.
 5. Print the card's name and power limit, one JSON line with every
    kernel's numbers, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -273,20 +280,22 @@ def bq_gaps(xyz, ctr, radius, ki, kh, pi, ph):
     return gap, tol, int(fill_only.sum())
 
 
+def tile_name(bq, tile) -> str:
+    kind = ("centres" if tile.mapping == bq.CENTRES_IN_LANES else "points")
+    return (f"{kind} {tile.centres}c x {tile.warps}w"
+            + (f" x {tile.per_lane} a lane"
+               if tile.mapping == bq.CENTRES_IN_LANES else ""))
+
+
 def check_bq(label, xyz, ctr, radius, nsample, bq, reps):
+    """Kernel vs plain ball query on one input, in every tile the plan
+    may pick for its shape (the plan's own through the public wrapper);
+    `reps` 0 checks without timing. Returns the per-shape record: the
+    plan's tile and its time, and per tile the time and the distance tests
+    executed, beside the tests the data needs."""
     import torch
 
-    ki, kh = bq.ball_query_stratified(xyz, ctr, radius, nsample,
-                                      return_hit=True)
     pi, ph = bq._ball_query_stratified_torch(xyz, ctr, radius, nsample)
-    torch.cuda.synchronize()
-    gap, tol, orphans = bq_gaps(xyz, ctr, radius, ki, kh, pi, ph)
-    max_gap = gap.max().item() if gap.numel() else 0.0
-    require(orphans == 0, f"bq {label}: {orphans} centres differ in"
-                          " slot-fill alone")
-    require(bool((gap <= tol).all()),
-            f"bq {label}: disagreement {max_gap:.3e} from the radius,"
-            f" above the tolerance")
     b, n, _ = xyz.shape
     m = ctr.shape[1]
     bucket = bq._bucket_size(n, nsample)
@@ -294,21 +303,117 @@ def check_bq(label, xyz, ctr, radius, nsample, bq, reps):
     base = torch.arange(nsample, device=xyz.device) * bucket
     span = torch.clamp(n - base, 0, bucket)
     tests = torch.where(ph, pi - base + 1, span).sum().item()
-    ms = cuda_ms(lambda: bq._ball_query_stratified_cuda(
-        xyz, ctr, radius, nsample), reps, ahead=True)
+    chosen = bq.plan(b, n, m, nsample)
+    tiles = bq.tiles(b, n, m, nsample)
+    require(chosen in tiles, f"bq {label}: the plan's tile {chosen} is not"
+                             " among the tiles checked")
+    max_gap, boundary, per_tile = 0.0, 0, []
+    for tile in tiles:
+        counter = torch.zeros(1, dtype=torch.int64, device=xyz.device)
+        if tile == chosen:
+            ki, kh = bq.ball_query_stratified(xyz, ctr, radius, nsample,
+                                              return_hit=True)
+        ki2, kh2 = bq._ball_query_stratified_cuda(xyz, ctr, radius, nsample,
+                                                  tile, counter)
+        torch.cuda.synchronize()
+        if tile == chosen:
+            require(torch.equal(ki, ki2) and torch.equal(kh, kh2),
+                    f"bq {label}: the wrapper did not take the plan's tile")
+        name = tile_name(bq, tile)
+        gap, tol, orphans = bq_gaps(xyz, ctr, radius, ki2, kh2, pi, ph)
+        worst = gap.max().item() if gap.numel() else 0.0
+        require(orphans == 0, f"bq {label} [{name}]: {orphans} centres"
+                              " differ in slot-fill alone")
+        require(bool((gap <= tol).all()),
+                f"bq {label} [{name}]: disagreement {worst:.3e} from the"
+                " radius, above the tolerance")
+        max_gap, boundary = max(max_gap, worst), max(boundary, gap.numel())
+        executed = counter.item()
+        require(executed >= tests, f"bq {label} [{name}]: {executed} tests"
+                                   f" executed, the data needs {tests}")
+        rec = dict(tile=tuple(tile), name=name, executed=executed)
+        if reps:
+            rec["ms"] = cuda_ms(lambda: bq._ball_query_stratified_cuda(
+                xyz, ctr, radius, nsample, tile), reps, ahead=True)
+        per_tile.append(rec)
+    head = (f"  bq  {label:14s} B={b} N={n} M={m} S={nsample} r={radius}"
+            f" bucket={bucket}: {len(tiles)} tiles agree with the plain"
+            f" version, {boundary} boundary disagreements (max |d2-r2|"
+            f" {max_gap:.2e}), hit rate {ph.float().mean().item():.3f},"
+            f" {tests} tests needed")
+    if not reps:
+        print(head)
+        return dict(shape=label, max_abs_err=max_gap)
+    mine = next(r for r in per_tile if r["tile"] == tuple(chosen))
     plain = cuda_ms(lambda: bq._ball_query_stratified_torch(
         xyz, ctr, radius, nsample), 3, ahead=True)
     bnd, by = bound_ms(BQ_OPS_PER_TEST * tests,
                        b * n * 12 + b * m * 12 + b * m * nsample * 5)
-    print(f"  bq  {label:14s} N={n} M={m} S={nsample} r={radius}"
-          f" bucket={bucket}: kernel {ms:.4f} ms, plain {plain:.3f} ms,"
-          f" bound {bnd:.4f} ms ({by}), {tests} distance tests,"
-          f" hit rate {ph.float().mean().item():.3f},"
-          f" {gap.numel()} boundary disagreements (max |d2-r2|"
-          f" {max_gap:.2e})")
-    return dict(shape=label, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by=by, max_abs_err=max_gap,
-                boundary_points=gap.numel())
+    print(head + f"; plan [{mine['name']}] kernel {mine['ms']:.4f} ms,"
+          f" plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})")
+    for r in per_tile:
+        print(f"      [{r['name']}] {r['ms']:.4f} ms, {r['executed']} tests"
+              f" executed ({r['executed'] / max(tests, 1):.2f} of needed)")
+    return dict(shape=label, ms=mine["ms"], plain_ms=plain, bound_ms=bnd,
+                bound_by=by, max_abs_err=max_gap, boundary_points=boundary,
+                tests_needed=tests, tile=mine["name"], tiles=per_tile)
+
+
+def bq_edge_inputs(device):
+    """(label, xyz, centres, radius, nsample) for the ball-query checks off
+    the main paths: what a tiling can get wrong."""
+    import torch
+
+    gen = torch.Generator(device).manual_seed(1)
+
+    def cloud(*shape):
+        return torch.rand(*shape, 3, device=device, generator=gen) * 2.0
+
+    cases = []
+    x = cloud(2, 1000)  # 8 live buckets of 16, the last of 104 points
+    cases.append(("m33", x, x[:, :33].clone(), 0.3, 16))
+    x = cloud(2, 3000)  # 24 live buckets of 64, the last of 56 points
+    cases.append(("m257_s64", x, x[:, 5:262].clone(), 0.25, 64))
+    x = cloud(3, 100)  # below one bucket
+    cases.append(("n100_s1", x, x[:, :40].clone(), 0.5, 1))
+    cases.append(("n100_s16", x, x[:, 30:70].clone(), 0.5, 16))
+    # a centre far from every point, and one whose only hit is the last
+    # point of the last live bucket (the others are in [0, 2)^3)
+    x = cloud(2, 1500)
+    x[:, -1] = 50.0
+    c = x[:, :64].clone()
+    c[:, 0] = 100.0
+    c[:, 1] = 50.01
+    cases.append(("lonely_last", x, c, 0.4, 16))
+    # 64 points, each 32 times: every hit is a tie with later copies
+    x = cloud(2, 64)[:, torch.arange(2048, device=device) % 64]
+    cases.append(("duplicates", x, x[:, :128].clone(), 0.5, 32))
+    x = cloud(1, 5000)
+    cases.append(("b1_s64", x, x[:, :600].clone(), 0.2, 64))
+    wide = torch.rand(2, 2048, 5, device=device, generator=gen) * 2.0
+    cases.append(("strided", wide[..., 1:4], wide[:, :300, 1:4], 0.3, 32))
+    return cases
+
+
+def check_bq_edges(bq, device):
+    import torch
+
+    for label, x, c, r, s in bq_edge_inputs(device):
+        check_bq(label, x, c, r, s, bq, reps=0)
+        if label == "lonely_last":
+            idx, hit = bq.ball_query_stratified(x, c, r, s, return_hit=True)
+            n = x.shape[1]
+            last = (n - 1) // bq._bucket_size(n, s)
+            only = torch.zeros(s, dtype=torch.bool, device=device)
+            only[last] = True
+            require(not bool(hit[:, 0].any()) and bool((idx[:, 0] == 0).all()),
+                    "bq: a centre with no hit must give index 0, no hit")
+            require(bool((hit[:, 1] == only).all())
+                    and bool((idx[:, 1] == n - 1).all()),
+                    "bq: a centre whose only hit is the last point must"
+                    " give that point in every slot")
+        if label == "strided":
+            require(not x.is_contiguous(), "bq: the strided case is not")
 
 
 def check_group(label, points, ctr, radius, nsample, bq, grouping, reps):
@@ -398,6 +503,127 @@ def check_group(label, points, ctr, radius, nsample, bq, grouping, reps):
                max_abs_err=err * scale, rel_err=err,
                longest_list=per_point.max().item(),
                **{f"{k}_ms": v for k, v in passes.items()})
+    return fwd, bwd
+
+
+def check_localize(label, xyz, feats, ctr, radius, nsample, bq, grouping,
+                   reps, needs=()):
+    """The grouping fused with the localize step against its plain version
+    at one input; returns (forward, backward) records, or None without
+    `reps` (a check only).
+
+    Forward: bit-exact. Gradients of xyz, features and the centres: each
+    within GROUP_GRAD_RTOL of the plain backward in float64, relative to
+    its largest entry, and bitwise equal over two runs. The backward is
+    timed with the gradients the training path asks for at this call
+    (`needs`, of "xyz", "features", "centres"): the kernel's by calling
+    its passes directly, as the unfused backward's is, the plain one
+    through autograd."""
+    import torch
+
+    idx, hit = bq.ball_query_stratified(xyz, ctr, radius, nsample,
+                                        return_hit=True)
+    b, n, _ = xyz.shape
+    m = ctr.shape[1]
+    c = 0 if feats is None else feats.shape[-1]
+    got = grouping.group_localize_stratified(xyz, feats, ctr, idx, hit,
+                                             radius)
+    want = grouping._group_localize_stratified_torch(xyz, feats, ctr, idx,
+                                                     hit, radius)
+    torch.cuda.synchronize()
+    require(got.shape == (b, m, nsample, 3 + c) and torch.equal(got, want),
+            f"localize {label}: forward kernel != plain at"
+            f" {(got != want).sum().item()} of {got.numel()} values")
+    del got, want
+
+    gen = torch.Generator(xyz.device).manual_seed(nsample * (c + 3))
+    gout = torch.randn((b, m, nsample, 3 + c), device=xyz.device,
+                       generator=gen)
+    names = ["xyz", "centres"] + (["features"] if c else [])
+
+    def leaves(dtype):
+        made = {"xyz": xyz, "centres": ctr, "features": feats}
+        # a copy: the main path's tensors come from inference mode
+        return {k: made[k].detach().to(dtype, copy=True).requires_grad_()
+                for k in names}
+
+    def grads(fn, dtype, wanted):
+        lv = leaves(dtype)
+        out = fn(lv["xyz"], lv.get("features"), lv["centres"], idx, hit,
+                 radius)
+        return dict(zip(wanted, torch.autograd.grad(
+            out, [lv[k] for k in wanted], gout.to(dtype))))
+
+    g1 = grads(grouping.group_localize_stratified, torch.float32, names)
+    g2 = grads(grouping.group_localize_stratified, torch.float32, names)
+    g64 = grads(grouping._group_localize_stratified_torch, torch.float64,
+                names)
+    torch.cuda.synchronize()
+    errs, worst_abs = {}, 0.0
+    for k in names:
+        scale = g64[k].abs().max().item()
+        gap = (g1[k].double() - g64[k]).abs().max().item()
+        errs[k] = gap / max(scale, 1e-30)
+        worst_abs = max(worst_abs, gap)
+        require(errs[k] <= GROUP_GRAD_RTOL,
+                f"localize {label}: gradient of {k} off by {errs[k]:.2e} of"
+                f" its largest entry, above {GROUP_GRAD_RTOL}")
+        require(torch.equal(g1[k], g2[k]),
+                f"localize {label}: gradient of {k} not bitwise repeatable")
+    del g1, g2, g64
+    said = ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+    if not reps:
+        print(f"  localize {label:9s} N={n} C={c} M={m} S={nsample}: forward"
+              f" bit-exact; gradients repeatable, errors of max |g|: {said}")
+        return None
+
+    kw = dict(reps=reps, inner=20, ahead=True)
+    fused = grouping.group_localize_stratified
+    plain = grouping._group_localize_stratified_torch
+    fwd_ms = cuda_ms(lambda: fused(xyz, feats, ctr, idx, hit, radius), **kw)
+    fwd_plain = cuda_ms(lambda: plain(xyz, feats, ctr, idx, hit, radius),
+                        **kw)
+    in_bytes = b * m * nsample * 4 + b * n * (3 + c) * 4 + b * m * 12
+    out_bytes = b * m * nsample * (3 + c) * 4
+    fwd_bound, fwd_by = bound_ms(2 * 3 * b * m * nsample,
+                                 in_bytes + out_bytes)
+    fwd = dict(shape=label, ms=fwd_ms, plain_ms=fwd_plain, library_ms=None,
+               bound_ms=fwd_bound, bound_by=fwd_by, max_abs_err=0)
+    line = (f"  localize {label:9s} N={n} C={c} M={m} S={nsample}: forward"
+            f" kernel {fwd_ms:.4f} ms, plain (cat, gather, sub, div, cat)"
+            f" {fwd_plain:.4f}, bound {fwd_bound:.4f} ({fwd_by}),"
+            f" bit-exact; gradients repeatable, errors of max |g|: {said}")
+    bwd = None
+    if needs:
+        wanted = [k for k in names if k in needs]
+        lv = {k: v if k in wanted else v.detach()
+              for k, v in leaves(torch.float32).items()}
+        plain_out = plain(lv["xyz"], lv.get("features"), lv["centres"], idx,
+                          hit, radius)
+        targets = [lv[k] for k in wanted]
+
+        def fused_backward():
+            return grouping._backward_passes(
+                gout, idx, hit, n, radius, want_xyz="xyz" in wanted,
+                want_centres="centres" in wanted)
+
+        bwd_ms = cuda_ms(fused_backward, **kw)
+        bwd_plain = cuda_ms(lambda: torch.autograd.grad(
+            plain_out, targets, gout, retain_graph=True), **kw)
+        passes = kernel_times(fused_backward, "group_")
+        bwd_bound, bwd_by = bound_ms(
+            b * m * nsample * (3 + c),  # one add each
+            out_bytes + b * m * nsample * 5 + b * n * (3 + c) * 4
+            + (b * m * 12 if "centres" in wanted else 0))
+        bwd = dict(shape=label, ms=bwd_ms, plain_ms=bwd_plain,
+                   library_ms=None, bound_ms=bwd_bound, bound_by=bwd_by,
+                   max_abs_err=worst_abs, rel_err=max(errs.values()),
+                   gradients=wanted)
+        line += (f"; backward ({', '.join(wanted)}) kernel {bwd_ms:.4f} ms,"
+                 f" plain {bwd_plain:.4f}, bound {bwd_bound:.4f} ({bwd_by}),"
+                 " passes "
+                 + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
+    print(line)
     return fwd, bwd
 
 
@@ -513,13 +739,13 @@ def profile_steps(fn, label, steps=3):
     return dev_ms
 
 
-def reset(kernels):
-    for k in kernels:
+def reset(counters):
+    for k in counters:
         k.launches = 0
         k.backward_launches = 0
 
 
-def train_phase(scans, tmp, cfg, kernels, header):
+def train_phase(scans, tmp, cfg, counters, header):
     """The FSB entry point on the card, then the bench-config step."""
     import copy
 
@@ -531,10 +757,10 @@ def train_phase(scans, tmp, cfg, kernels, header):
     from backtoreality_tpu_torch.train import common, evaluate, votenet
     from backtoreality_tpu_torch.train import votenet_fsb
 
-    fps_k, bq_k, group_k = kernels
+    fps_k, bq_k, group_k, localize_k = counters
     log = pathlib.Path(tmp) / "fsb_log"
     epochs = 2
-    reset(kernels)
+    reset(counters)
     t0 = time.perf_counter()
     votenet_fsb.main([
         "--data_root", str(scans), "--train_split", "all", "--val_split",
@@ -547,17 +773,23 @@ def train_phase(scans, tmp, cfg, kernels, header):
     forwards = steps + math.ceil(NUM_SCANS / B)  # + one evaluation
     launches = {"fps": fps_k.launches, "ball_query": bq_k.launches,
                 "group_stratified": group_k.launches,
-                "group_stratified_backward": group_k.backward_launches}
+                "group_stratified_backward": group_k.backward_launches,
+                "group_localize_stratified": localize_k.launches,
+                "group_localize_stratified_backward":
+                    localize_k.backward_launches}
     print(f"[training path] votenet_fsb.main: {steps} steps + one"
           f" evaluation over {NUM_SCANS} scans in {train_s:.1f} s;"
           f" launches {launches}")
-    for name in ("fps", "ball_query", "group_stratified"):
+    for name in ("fps", "ball_query", "group_stratified",
+                 "group_localize_stratified"):
         require(launches[name] == 5 * forwards,
                 f"{name}: {launches[name]} launches in training, expected"
                 f" 5 per forward ({forwards} forwards)")
-    require(launches["group_stratified_backward"] == 4 * steps,
-            f"group_stratified backward: {group_k.backward_launches}"
-            f" launches, expected 4 per step ({steps} steps)")
+    for name in ("group_stratified_backward",
+                 "group_localize_stratified_backward"):
+        require(launches[name] == 4 * steps,
+                f"{name}: {launches[name]} launches, expected 4 per step"
+                f" ({steps} steps)")
     rows = [json.loads(line) for line in
             (log / "metrics.jsonl").read_text().splitlines()]
     losses = [r["loss"] for r in rows if "loss" in r]
@@ -649,6 +881,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     kernels = (fps.KERNEL, bq.KERNEL, grouping.KERNEL)
+    counters = kernels + (grouping.LOCALIZE,)
 
     # 1. build
     t0 = time.perf_counter()
@@ -720,10 +953,11 @@ def main() -> int:
          ep["aggregated_vote_xyz"], 0.3, 16))
     bq_records = []
     for label, x, _, c, r, s in sa_calls:
-        rec = check_bq(label, x, c, r, s, bq, reps=10)
+        rec = check_bq(label, x, c, r, s, bq, reps=5)
         rec["paths"] = both
         bq_records.append(rec)
-    group_fwd, group_bwd = [], []
+    check_bq_edges(bq, device)
+    group_fwd, group_bwd, local_fwd, local_bwd = [], [], [], []
     for label, x, feats, c, r, s in sa_calls:
         fwd, bwd = check_group(label, torch.cat([x, feats], -1), c, r, s,
                                bq, grouping, reps=10)
@@ -732,17 +966,34 @@ def main() -> int:
         bwd["paths"] = () if label == "sa1" else ("training",)
         group_fwd.append(fwd)
         group_bwd.append(bwd)
+        # what the training path differentiates: the features past SA1,
+        # and at vote clustering also the votes and the centres drawn
+        # from them
+        needs = {"sa1": (), "vote_agg": ("xyz", "features", "centres")}.get(
+            label, ("features",))
+        fwd, bwd = check_localize(label, x, feats, c, r, s, bq, grouping,
+                                  reps=10, needs=needs)
+        fwd["paths"] = both
+        local_fwd.append(fwd)
+        if bwd is not None:
+            bwd["paths"] = ("training",)
+            local_bwd.append(bwd)
+    # without features: the coordinates alone
+    _, x, _, c, r, s = sa_calls[2]
+    check_localize("sa3_xyz_only", x, None, c, r, s, bq, grouping, reps=0)
     del ep
     if args.kernels_only:
         print(json.dumps({"kernels_only": {
             "fps": fps_records, "fps_floor_us": {
                 str(k): v for k, v in floor.items()},
             "ball_query": bq_records, "group_stratified": group_fwd,
-            "group_stratified_backward": group_bwd}}))
+            "group_stratified_backward": group_bwd,
+            "group_localize_stratified": local_fwd,
+            "group_localize_stratified_backward": local_bwd}}))
         return 0
 
     # 3. the serving path: the evaluation entry point on the card
-    reset(kernels)
+    reset(counters)
     t0 = time.perf_counter()
     results = evaluate.main(["--model", "votenet", "--checkpoint_path",
                              str(ckpt), "--device", "cuda", *common])
@@ -751,14 +1002,19 @@ def main() -> int:
                "ball_query": bq.KERNEL.launches,
                "group_stratified": grouping.KERNEL.launches,
                "group_stratified_backward":
-                   grouping.KERNEL.backward_launches}
+                   grouping.KERNEL.backward_launches,
+               "group_localize_stratified": grouping.LOCALIZE.launches,
+               "group_localize_stratified_backward":
+                   grouping.LOCALIZE.backward_launches}
     batches = math.ceil(NUM_SCANS / B)
     print(f"[serving path] evaluate.main over {NUM_SCANS} scans in"
           f" {eval_s:.1f} s; launches {serving} over {batches} batches")
-    for name in ("fps", "ball_query", "group_stratified"):
+    for name in ("fps", "ball_query", "group_stratified",
+                 "group_localize_stratified"):
         require(serving[name] == 5 * batches,
                 f"{name}: {serving[name]} launches, expected 5 per batch")
-    require(serving["group_stratified_backward"] == 0,
+    require(serving["group_stratified_backward"] == 0
+            and serving["group_localize_stratified_backward"] == 0,
             "grouping backward launched while serving")
     for (_, t), metrics in results.items():
         require(math.isfinite(metrics["mAP"]) and
@@ -784,7 +1040,7 @@ def main() -> int:
     del model, out
 
     # 4. the training path
-    training = train_phase(scans, tmp.name, cfg, kernels, header)
+    training = train_phase(scans, tmp.name, cfg, counters, header)
     tmp.cleanup()
 
     def by_path(name):
@@ -802,6 +1058,14 @@ def main() -> int:
         summarize("group_stratified_backward", grouping.KERNEL,
                   "backtoreality_tpu_torch/csrc/group_stratified.cu",
                   group_bwd, by_path("group_stratified_backward"),
+                  "training"),
+        summarize("group_localize_stratified", grouping.LOCALIZE,
+                  "backtoreality_tpu_torch/csrc/group_stratified.cu",
+                  local_fwd, by_path("group_localize_stratified"),
+                  "training"),
+        summarize("group_localize_stratified_backward", grouping.LOCALIZE,
+                  "backtoreality_tpu_torch/csrc/group_stratified.cu",
+                  local_bwd, by_path("group_localize_stratified_backward"),
                   "training"),
     ]
     kernels_line[0]["serial_floor_us"] = {str(k): v

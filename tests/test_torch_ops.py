@@ -17,7 +17,9 @@ import jax
 import jax.numpy as jnp
 
 from backtoreality_tpu import ops as jops
+from backtoreality_tpu.nn.sa_fp import _GroupMixin
 from backtoreality_tpu_torch import ops as tops
+from oracles import ball_query_stratified_oracle
 from test_ops import make_cloud, safe_radius
 
 jfps = importlib.import_module("backtoreality_tpu.ops.fps")
@@ -215,6 +217,134 @@ class TestBallQueryStratified:
                                      (512, 16), (100, 8)])
     def test_bucket_size_matches(self, n, s):
         assert tbq._bucket_size(n, s) == jbq._bucket_size(n, s)
+
+
+def _bq_edge_case(name):
+    """(xyz, centres, radius, nsample) of the edge inputs the CUDA kernel's
+    tiles are held on: what a tiling can get wrong."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def cloud(b, n):
+        return (rng.random((b, n, 3)) * 2.0).astype(np.float32)
+
+    if name == "m33":  # 8 live buckets of 16, the last of 104 points
+        xyz = cloud(2, 1000)
+        return xyz, xyz[:, :33].copy(), 0.3, 16
+    if name == "m257_s64":  # 24 live buckets of 64, the last of 56 points
+        xyz = cloud(2, 3000)
+        return xyz, xyz[:, 5:262].copy(), 0.25, 64
+    if name == "n100_s1":  # below one bucket, one slot
+        xyz = cloud(3, 100)
+        return xyz, xyz[:, :40].copy(), 0.5, 1
+    if name == "n100_s16":
+        xyz = cloud(3, 100)
+        return xyz, xyz[:, 30:70].copy(), 0.5, 16
+    if name == "lonely_last":
+        # centre 0 far from every point; centre 1's only hit is the last
+        # point of the last live bucket
+        xyz = cloud(2, 1500)
+        xyz[:, -1] = 50.0
+        centers = xyz[:, :64].copy()
+        centers[:, 0] = 100.0
+        centers[:, 1] = 50.01
+        return xyz, centers, 0.4, 16
+    if name == "duplicates":  # 64 points, each 32 times
+        xyz = cloud(2, 64)[:, np.arange(2048) % 64]
+        return xyz, xyz[:, :128].copy(), 0.5, 32
+    if name == "b1_s64":
+        xyz = cloud(1, 5000)
+        return xyz, xyz[:, :600].copy(), 0.2, 64
+    if name == "strided":  # a slice of a wider array
+        wide = (rng.random((2, 2048, 5)) * 2.0).astype(np.float32)
+        return wide[..., 1:4], wide[:, :300, 1:4], 0.3, 32
+    raise KeyError(name)
+
+
+_BQ_EDGE_CASES = ["m33", "m257_s64", "n100_s1", "n100_s16", "lonely_last",
+                  "duplicates", "b1_s64", "strided"]
+# (B, N, M, nsample) of the five set-abstraction calls of VoteNet at B=8,
+# N=40000, and of the edge inputs above
+_BQ_MAIN_SHAPES = [(8, 40000, 2048, 64), (8, 2048, 1024, 32),
+                   (8, 1024, 512, 16), (8, 512, 256, 16),
+                   (8, 1024, 256, 16)]
+_BQ_EDGE_SHAPES = [(2, 1000, 33, 16), (2, 3000, 257, 64), (3, 100, 40, 1),
+                   (3, 100, 40, 16), (2, 1500, 64, 16), (2, 2048, 128, 32),
+                   (1, 5000, 600, 64), (2, 2048, 300, 32)]
+
+
+class TestBallQueryEdges:
+    """The plain version on the inputs the CUDA tiles are checked on,
+    against the XLA implementation and the numpy oracle, bit for bit."""
+
+    @pytest.mark.parametrize("name", _BQ_EDGE_CASES)
+    def test_plain_matches_xla_and_oracle(self, name):
+        xyz, centers, r, s = _bq_edge_case(name)
+        r = _boundary_free_radius(xyz, centers, r)
+        want_i, want_h = jbq._ball_query_stratified_xla(
+            jnp.asarray(xyz), jnp.asarray(centers), r, s)
+        txyz, tcenters = torch.from_numpy(xyz), torch.from_numpy(centers)
+        if name == "strided":
+            assert not txyz.is_contiguous()
+        got_i, got_h = tops.ball_query_stratified(txyz, tcenters, r, s,
+                                                  return_hit=True)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(got_h.numpy(), np.asarray(want_h))
+        np.testing.assert_array_equal(
+            got_i.numpy(), ball_query_stratified_oracle(xyz, centers, r, s))
+        if name == "lonely_last":
+            n = xyz.shape[1]
+            last = (n - 1) // tbq._bucket_size(n, s)
+            assert not got_h[:, 0].any() and (got_i[:, 0] == 0).all()
+            assert got_h[:, 1].nonzero()[:, 1].tolist() == [last, last]
+            assert (got_i[:, 1] == n - 1).all()
+
+
+class TestBallQueryPlan:
+    """`ops.ball_query.plan`: the tile of the CUDA kernel as a plain
+    function of the shape."""
+
+    @pytest.mark.parametrize("b,n,m,s", _BQ_MAIN_SHAPES + _BQ_EDGE_SHAPES)
+    def test_tiles_are_inside_the_kernel_limits(self, b, n, m, s):
+        tiles = tbq.tiles(b, n, m, s)
+        chosen = tbq.plan(b, n, m, s)
+        assert chosen in tiles
+        assert {t.mapping for t in tiles} == {tbq.CENTRES_IN_LANES,
+                                              tbq.POINTS_IN_LANES}
+        live = -(-n // tbq._bucket_size(n, s))
+        for t in tiles:
+            assert 1 <= t.warps <= tbq._MAX_WARPS
+            assert 1 <= t.centres <= tbq._MAX_CENTRES
+            assert tbq.smem_bytes(t, s) <= tbq._MAX_SMEM
+            if t.mapping == tbq.CENTRES_IN_LANES:
+                assert t.per_lane in tbq._PER_LANE
+                assert t.centres % (32 * t.per_lane) == 0
+                groups = t.centres // (32 * t.per_lane)
+                assert t.warps % groups == 0
+                assert t.warps // groups <= live  # no idle bucket group
+            else:
+                assert t.centres <= tbq._MAX_POINT_CENTRES
+                assert t.per_lane == 1 and t.warps <= live
+        # every SM gets a block where the centres allow it at all
+        most = max(tbq.blocks(t, b, m) for t in tiles)
+        assert tbq.blocks(chosen, b, m) >= min(tbq._SMS, most)
+
+    @pytest.mark.parametrize("b,n,m,s", _BQ_MAIN_SHAPES)
+    def test_main_path_shapes_fill_the_card(self, b, n, m, s):
+        tile = tbq.plan(b, n, m, s)
+        assert tbq.blocks(tile, b, m) >= tbq._SMS
+        # lanes on centres only where a bucket is one chunk and a row has
+        # the work for it: the second layer's call
+        lanes_on_centres = (b, n, m, s) == (8, 2048, 1024, 32)
+        assert (tile.mapping == tbq.CENTRES_IN_LANES) == lanes_on_centres
+
+    def test_smem_matches_the_launcher(self):
+        """`smem_bytes` is the launcher's sum: the table of first hits and
+        fills, and two staged chunks per bucket group or the centres."""
+        lanes = tbq.Plan(tbq.CENTRES_IN_LANES, 128, 8, 2)  # 2 x 4 groups
+        assert tbq.smem_bytes(lanes, 64) == (
+            4 * (128 * 65 + 128) + 4 * 2 * 3 * 128 * 4)
+        points = tbq.Plan(tbq.POINTS_IN_LANES, 32, 8, 1)
+        assert tbq.smem_bytes(points, 16) == 4 * (32 * 17 + 32) + 16 * 32
 
 
 class TestGroupingInterpolate:
@@ -439,3 +569,106 @@ class TestChamfer:
             want = np.asarray(jops.huber_loss(jnp.asarray(err), delta))
             got = tops.huber_loss(torch.from_numpy(err), delta).numpy()
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+class _JaxGroup(_GroupMixin):
+    """The JAX set-abstraction layer's `_group` with VoteNet's settings."""
+
+    query_mode = "stratified"
+    normalize_xyz = True
+    use_xyz = True
+
+    def __init__(self, radius, nsample):
+        self.radius = radius
+        self.nsample = nsample
+
+
+def _localize_case(seed, with_features):
+    rng = np.random.default_rng(seed)
+    xyz = make_cloud(rng, 2, 400, pad_frac=0.0, scale=1.5)
+    centers = xyz[:, :24].copy() + rng.normal(size=(2, 24, 3)).astype(
+        np.float32) * 0.01
+    centers[0, 0] = 50.0  # no neighbour at all
+    r = _boundary_free_radius(xyz, centers, 0.7)
+    feats = (rng.normal(size=(2, 400, 6)).astype(np.float32)
+             if with_features else None)
+    return xyz, feats, centers, r, 8
+
+
+class TestGroupLocalize:
+    """`group_localize_stratified` (its plain version) against the JAX
+    layer's ball query -> stratified grouping -> subtract, divide,
+    concatenate."""
+
+    @pytest.mark.parametrize("with_features", [True, False])
+    def test_forward_equals_jax_f32(self, with_features):
+        """A gather, one subtraction and one division: tolerance 0."""
+        xyz, feats, centers, r, s = _localize_case(31, with_features)
+        want, want_local = _JaxGroup(r, s)._group(
+            jnp.asarray(xyz), jnp.asarray(centers),
+            None if feats is None else jnp.asarray(feats))
+        txyz, tcenters = torch.from_numpy(xyz), torch.from_numpy(centers)
+        idx, hit = tops.ball_query_stratified(txyz, tcenters, r, s,
+                                              return_hit=True)
+        assert not hit[0, 0].any()
+        got = tops.group_localize_stratified(
+            txyz, None if feats is None else torch.from_numpy(feats),
+            tcenters, idx, hit, r)
+        assert got.shape == (2, 24, s, 3 + (6 if with_features else 0))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got[..., :3].numpy(),
+                                      np.asarray(want_local))
+
+    @pytest.mark.parametrize("with_features", [True, False])
+    def test_gradients_match_jax_f64(self, with_features):
+        """Gradients of xyz, features and the centres against `jax.grad`
+        in float64, atol 1e-12."""
+        xyz, feats, centers, r, s = _localize_case(32, with_features)
+        c = 3 + (6 if with_features else 0)
+        gout = np.random.default_rng(33).normal(size=(2, 24, s, c))
+        names = ["xyz", "centers"] + (["feats"] if with_features else [])
+        args = {"xyz": xyz, "centers": centers, "feats": feats}
+        jax.config.update("jax_enable_x64", True)
+        try:
+            def loss(d):
+                grouped, _ = _JaxGroup(r, s)._group(
+                    d["xyz"], d["centers"], d.get("feats"))
+                return jnp.sum(grouped * jnp.asarray(gout))
+            want = jax.device_get(jax.grad(loss)(
+                {k: jnp.asarray(args[k], jnp.float64) for k in names}))
+        finally:
+            jax.config.update("jax_enable_x64", False)
+        leaves = {k: torch.from_numpy(args[k]).double().requires_grad_()
+                  for k in names}
+        idx, hit = tops.ball_query_stratified(
+            leaves["xyz"], leaves["centers"], r, s, return_hit=True)
+        out = tops.group_localize_stratified(
+            leaves["xyz"], leaves.get("feats"), leaves["centers"], idx, hit,
+            r)
+        got = torch.autograd.grad(out, [leaves[k] for k in names],
+                                  torch.from_numpy(gout))
+        for k, g in zip(names, got):
+            assert np.abs(want[k]).max() > 0, k
+            np.testing.assert_allclose(g.numpy(), want[k], rtol=0,
+                                       atol=1e-12, err_msg=k)
+
+    def test_cpu_tensor_takes_plain_version(self):
+        xyz, feats, centers, r, s = _localize_case(34, True)
+        before = (tgroup.KERNEL.launches, tgroup.LOCALIZE.launches,
+                  tgroup.LOCALIZE.backward_launches)
+        leaves = [torch.from_numpy(a).requires_grad_()
+                  for a in (xyz, feats, centers)]
+        idx, hit = tops.ball_query_stratified(leaves[0], leaves[2], r, s,
+                                              return_hit=True)
+        tops.group_localize_stratified(leaves[0], leaves[1], leaves[2], idx,
+                                       hit, r).sum().backward()
+        assert all(a.grad is not None for a in leaves)
+        assert (tgroup.KERNEL.launches, tgroup.LOCALIZE.launches,
+                tgroup.LOCALIZE.backward_launches) == before
+
+    def test_rejects_other_devices(self):
+        xyz = torch.zeros(1, 16, 3, device="meta")
+        idx = torch.zeros(1, 4, 2, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError):
+            tops.group_localize_stratified(xyz, None, xyz[:, :4], idx,
+                                           idx.bool(), 0.5)

@@ -186,3 +186,48 @@ def test_batchnorm_running_stats_match_jax_f64():
     np.testing.assert_allclose(bn.running_var.numpy(),
                                mut["batch_stats"]["var"], rtol=0,
                                atol=1e-14)
+
+
+@pytest.mark.parametrize("with_features", [True, False])
+def test_sa_module_fused_grouping_matches_jax(with_features, monkeypatch):
+    """One set-abstraction layer through `group_localize_stratified` (the
+    op the layer calls; on the CPU its plain version) against the JAX
+    module with bridged weights: indices exactly, the centres exactly, the
+    pooled features to atol 1e-5 (f32 sums of a two-layer MLP)."""
+    from backtoreality_tpu.nn import SAModuleVotes as JaxSAModuleVotes
+    from backtoreality_tpu_torch import ops as port_ops
+    from backtoreality_tpu_torch.nn import SAModuleVotes
+
+    rng = np.random.default_rng(7)
+    xyz = ((rng.random((2, 600, 3)) * 2 - 1) * 1.5).astype(np.float32)
+    feats = (rng.normal(size=(2, 600, 5)).astype(np.float32)
+             if with_features else None)
+    jfeats = None if feats is None else jnp.asarray(feats)
+    jmod = JaxSAModuleVotes(npoint=48, radius=0.6, nsample=8, mlp=(16, 32),
+                            normalize_xyz=True)
+    variables = jax.device_get(jmod.init(
+        jax.random.PRNGKey(1), jnp.asarray(xyz), jfeats, train=False))
+    want_xyz, want_feats, want_inds = jmod.apply(
+        variables, jnp.asarray(xyz), jfeats, train=False)
+
+    calls = []
+    fused = port_ops.group_localize_stratified
+
+    def spy(*args):
+        calls.append(args)
+        return fused(*args)
+
+    monkeypatch.setattr(port_ops, "group_localize_stratified", spy)
+    port = SAModuleVotes(48, 0.6, 8, in_features=5 if with_features else 0,
+                         mlp=[16, 32])
+    port.load_state_dict(state_dict_from_jax(variables))
+    port.eval()
+    with torch.no_grad():
+        got_xyz, got_feats, got_inds = port(
+            torch.from_numpy(xyz),
+            None if feats is None else torch.from_numpy(feats))
+    assert len(calls) == 1 and calls[0][5] == 0.6
+    np.testing.assert_array_equal(got_inds.numpy(), np.asarray(want_inds))
+    np.testing.assert_array_equal(got_xyz.numpy(), np.asarray(want_xyz))
+    np.testing.assert_allclose(got_feats.numpy(), np.asarray(want_feats),
+                               rtol=0, atol=1e-5)
