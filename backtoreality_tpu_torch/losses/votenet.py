@@ -1,29 +1,32 @@
-"""VoteNet training criterion, the FSB recipe.
+"""VoteNet training criteria: FSB, WSB, BR and BR+CenterRefine.
 
 Counterpart of ``backtoreality_tpu/losses/votenet.py`` (reference
-`detection/Votenet/models/loss_helper.py`: constants :19-22, vote loss
-:24-69, objectness :111-152, box :154-228, composition :336-400). Every
-function takes `end_points` (model outputs merged with the GT labels,
-channels-last) and `get_loss` returns ``(loss, aux)``, where aux holds
-every scalar the reference logs plus the label tensors downstream code
-needs. Nothing is mutated. The weak, DA, jitter and boxnet criteria are
-not ported.
+`detection/Votenet/models/loss_helper.py`: constants :19-22, vote losses
+:24-109, objectness :111-152, box :154-228, weak centre :242-304,
+compositions :336-464, DA :548-664, jitter :667-803). Every function
+takes `end_points` (model outputs merged with the GT labels,
+channels-last) and each criterion returns ``(loss, aux)``, where aux
+holds every scalar the reference logs plus the label tensors downstream
+code needs. Nothing is mutated. The boxnet, separate-DA and CAM criteria
+are not ported.
 
 Label keys (from the data pipeline, the reference's names):
   center_label (B,K2,3), box_label_mask (B,K2), sem_cls_label (B,K2),
   heading_class_label (B,K2), heading_residual_label (B,K2),
   size_class_label (B,K2), size_residual_label (B,K2,3),
-  vote_label (B,N,9), vote_label_mask (B,N).
+  vote_label (B,N,9), vote_label_mask (B,N), center_jitter (B,K2,3).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from backtoreality_tpu_torch.losses.common import (masked_mean, one_hot_f32,
-                                                   softmax_ce)
+                                                   softmax_ce,
+                                                   softmax_focal_loss)
 from backtoreality_tpu_torch.ops import huber_loss, nn_distance
 
 FAR_THRESHOLD = 0.6
@@ -58,6 +61,18 @@ def compute_vote_loss(end_points):
     _, _, dist2, _ = nn_distance(vote_reshape, gt_reshape, l1=True)
     votes_dist = torch.amin(dist2, dim=1).reshape(b, num_seed)
     return masked_mean(votes_dist, seed_gt_votes_mask)
+
+
+def compute_weak_vote_loss(end_points):
+    """`loss_helper.py:71-109`: bidirectional chamfer between votes and
+    (weak) GT centres — mean vote->centre plus masked centre->vote."""
+    b, num_seed, _ = end_points["seed_xyz"].shape
+    gt_center = end_points["center_label"][:, :, 0:3]
+    dist1, _, dist2, _ = nn_distance(end_points["vote_xyz"], gt_center,
+                                     l1=True)
+    votes_dist = torch.amin(dist1.reshape(b, num_seed, -1), dim=2)
+    return (torch.mean(votes_dist)
+            + masked_mean(dist2, end_points["box_label_mask"]))
 
 
 def compute_objectness_loss(end_points):
@@ -142,6 +157,29 @@ def compute_box_and_sem_cls_loss(end_points, config):
             size_residual_normalized_loss, sem_cls_loss)
 
 
+def compute_center_and_sem_cls_loss(end_points, config):
+    """`loss_helper.py:242-304` — the weak-label variant: centre chamfer
+    + size cls + sem cls only (weak labels carry centres + classes)."""
+    assignment = end_points["object_assignment"]
+    objectness_label = end_points["objectness_label"].to(torch.float32)
+
+    gt_center = end_points["center_label"][:, :, 0:3]
+    dist1, _, dist2, _ = nn_distance(end_points["center"], gt_center)
+    center_loss = (masked_mean(dist1, objectness_label)
+                   + masked_mean(dist2, end_points["box_label_mask"]))
+
+    size_class_label = _take(end_points["size_class_label"], assignment)
+    size_class_loss = masked_mean(
+        softmax_ce(end_points["size_scores"], size_class_label),
+        objectness_label)
+
+    sem_cls_label = _take(end_points["sem_cls_label"], assignment)
+    sem_cls_loss = masked_mean(
+        softmax_ce(end_points["sem_cls_scores"], sem_cls_label),
+        objectness_label)
+    return center_loss, size_class_loss, sem_cls_loss
+
+
 def _objectness_stats(end_points, objectness_label, objectness_mask):
     total = objectness_label.shape[0] * objectness_label.shape[1]
     pos_ratio = torch.sum(objectness_label.to(torch.float32)) / total
@@ -185,4 +223,172 @@ def get_loss(end_points, config):
     pos_ratio, neg_ratio, obj_acc = _objectness_stats(
         end_points, objectness_label, objectness_mask)
     aux.update(pos_ratio=pos_ratio, neg_ratio=neg_ratio, obj_acc=obj_acc)
+    return loss, aux
+
+
+def get_loss_weak(end_points, config):
+    """WSB criterion (`loss_helper.py:403-464`). Returns (loss, aux)."""
+    aux = {}
+    vote_loss = compute_weak_vote_loss(end_points)
+    aux["vote_loss"] = vote_loss
+
+    (objectness_loss, objectness_label, objectness_mask,
+     object_assignment) = compute_objectness_loss(end_points)
+    aux["objectness_loss"] = objectness_loss
+    aux["objectness_label"] = objectness_label
+    aux["objectness_mask"] = objectness_mask
+    aux["object_assignment"] = object_assignment
+    end_points = dict(end_points, objectness_label=objectness_label,
+                      object_assignment=object_assignment)
+
+    center_loss, size_cls_loss, sem_cls_loss = (
+        compute_center_and_sem_cls_loss(end_points, config))
+    box_loss = center_loss + 0.1 * size_cls_loss
+    aux.update(center_loss=center_loss, size_cls_loss=size_cls_loss,
+               sem_cls_loss=sem_cls_loss, box_loss=box_loss)
+
+    loss = (vote_loss + 0.5 * objectness_loss + box_loss
+            + 0.1 * sem_cls_loss) * 10.0
+    aux["loss"] = loss
+
+    pos_ratio, neg_ratio, obj_acc = _objectness_stats(
+        end_points, objectness_label, objectness_mask)
+    aux.update(pos_ratio=pos_ratio, neg_ratio=neg_ratio, obj_acc=obj_acc)
+    return loss, aux
+
+
+SOURCE_COEFFICIENT = 0.1
+DA_COEFFICIENT = 0.5
+
+
+def _domain_align_loss(end_points_S, end_points_T, objectness_label_S,
+                       objectness_label_T):
+    """`loss_helper.py:625-654`: local L2-to-domain on objectness-positive
+    proposals + global focal (gamma=3), both behind grad reversal."""
+    global_S = end_points_S["global_d_pred"]  # (B, 2)
+    local_S = end_points_S["local_d_pred"]  # (B, K, 1)
+    domain_S = torch.zeros(global_S.shape[0], dtype=torch.int64,
+                           device=global_S.device)
+    w_S = objectness_label_S[..., None].to(torch.float32)
+    source_dloss = (
+        DA_COEFFICIENT * torch.mean(torch.square(local_S) * w_S)
+        + DA_COEFFICIENT * softmax_focal_loss(global_S, domain_S, gamma=3))
+
+    global_T = end_points_T["global_d_pred"]
+    local_T = end_points_T["local_d_pred"]
+    domain_T = torch.ones(global_T.shape[0], dtype=torch.int64,
+                          device=global_T.device)
+    w_T = objectness_label_T[..., None].to(torch.float32)
+    target_dloss = (
+        DA_COEFFICIENT * torch.mean(torch.square(1.0 - local_T) * w_T)
+        + DA_COEFFICIENT * softmax_focal_loss(global_T, domain_T, gamma=3))
+    return source_dloss + target_dloss
+
+
+def _da_supervised_parts(end_points_S, end_points_T, config, aux):
+    """Shared S(full)+T(weak) supervision of get_loss_DA{,_jitter}
+    (`loss_helper.py:572-623`). Returns the component sums and the
+    objectness labels."""
+    vote_loss_S = compute_weak_vote_loss(end_points_S)
+    vote_loss_T = compute_weak_vote_loss(end_points_T)
+    vote_loss = SOURCE_COEFFICIENT * vote_loss_S + vote_loss_T
+    aux.update(vote_loss_S=vote_loss_S, vote_loss_T=vote_loss_T)
+
+    (objectness_loss_S, objectness_label_S, objectness_mask_S,
+     assignment_S) = compute_objectness_loss(end_points_S)
+    (objectness_loss_T, objectness_label_T, _,
+     assignment_T) = compute_objectness_loss(end_points_T)
+    objectness_loss = (SOURCE_COEFFICIENT * objectness_loss_S
+                       + objectness_loss_T)
+    aux.update(objectness_loss_S=objectness_loss_S,
+               objectness_loss_T=objectness_loss_T)
+
+    ep_S = dict(end_points_S, objectness_label=objectness_label_S,
+                object_assignment=assignment_S)
+    ep_T = dict(end_points_T, objectness_label=objectness_label_T,
+                object_assignment=assignment_T)
+
+    (center_loss_S, heading_cls_loss, heading_reg_loss, size_cls_loss_S,
+     size_reg_loss, sem_cls_loss_S) = compute_box_and_sem_cls_loss(
+         ep_S, config)
+    box_loss_S = (center_loss_S + 0.1 * heading_cls_loss
+                  + heading_reg_loss + 0.1 * size_cls_loss_S
+                  + size_reg_loss)
+    center_loss_T, size_cls_loss_T, sem_cls_loss_T = (
+        compute_center_and_sem_cls_loss(ep_T, config))
+    box_loss_T = center_loss_T + 0.1 * size_cls_loss_T
+
+    box_loss = SOURCE_COEFFICIENT * box_loss_S + box_loss_T
+    sem_cls_loss = SOURCE_COEFFICIENT * sem_cls_loss_S + sem_cls_loss_T
+    aux.update(center_loss_S=center_loss_S, center_loss_T=center_loss_T,
+               box_loss_S=box_loss_S, box_loss_T=box_loss_T)
+
+    pos_ratio, neg_ratio, obj_acc = _objectness_stats(
+        end_points_S, objectness_label_S, objectness_mask_S)
+    aux.update(pos_ratio=pos_ratio, neg_ratio=neg_ratio, obj_acc=obj_acc)
+    return (vote_loss, objectness_loss, box_loss, sem_cls_loss,
+            objectness_label_S, objectness_label_T)
+
+
+def get_loss_DA(end_points_S, end_points_T, config):
+    """BR criterion (`loss_helper.py:548-664`): 0.1 x full-supervised
+    source + weak target + domain alignment. Returns (loss, aux)."""
+    aux = {}
+    (vote_loss, objectness_loss, box_loss, sem_cls_loss,
+     objectness_label_S, objectness_label_T) = _da_supervised_parts(
+         end_points_S, end_points_T, config, aux)
+    da_loss = _domain_align_loss(end_points_S, end_points_T,
+                                 objectness_label_S, objectness_label_T)
+    aux["da_loss"] = da_loss
+    loss = (vote_loss + 0.5 * objectness_loss + box_loss
+            + 0.1 * sem_cls_loss + da_loss) * 10.0
+    aux["loss"] = loss
+    return loss, aux
+
+
+def compute_jitter_loss(end_points):
+    """`loss_helper.py:667-672`: MSE(jitter_pred, center_jitter)."""
+    return torch.mean(torch.square(end_points["center_jitter"]
+                                   - end_points["jitter_pred"]))
+
+
+def refine_center_labels(end_points_S, end_points_T, epoch):
+    """CenterRefine label refinement (`loss_helper.py:698-701`):
+    progressively subtract the (GT for source / predicted and detached
+    for target) jitter from the weak centre labels. Returns updated
+    end_points dicts (functional; the reference mutates in place). The
+    ramp min(epoch / 60, 1) is rounded as the JAX step computes it from
+    its float32 epoch."""
+    ramp = float(min(np.float32(epoch) / np.float32(60.0), np.float32(1.0)))
+    new_S = dict(end_points_S)
+    new_T = dict(end_points_T)
+    new_S["center_label"] = (end_points_S["center_label"]
+                             - ramp * end_points_S["center_jitter"])
+    refined_T = (end_points_T["center_label"]
+                 - ramp * end_points_T["jitter_pred"]
+                 * end_points_T["box_label_mask"][..., None])
+    new_T["center_label"] = refined_T.detach()
+    return new_S, new_T
+
+
+def get_loss_DA_jitter(end_points_S, end_points_T, epoch, config):
+    """BR+CenterRefine criterion (`loss_helper.py:675-803`); `epoch` is a
+    host number. Returns (loss, aux)."""
+    end_points_S, end_points_T = refine_center_labels(
+        end_points_S, end_points_T, epoch)
+
+    aux = {}
+    jitter_loss_S = compute_jitter_loss(end_points_S)
+    aux["jitter_loss_S"] = jitter_loss_S
+
+    (vote_loss, objectness_loss, box_loss, sem_cls_loss,
+     objectness_label_S, objectness_label_T) = _da_supervised_parts(
+         end_points_S, end_points_T, config, aux)
+    da_loss = _domain_align_loss(end_points_S, end_points_T,
+                                 objectness_label_S, objectness_label_T)
+    aux["da_loss"] = da_loss
+    loss = (vote_loss + 0.5 * objectness_loss + box_loss
+            + 0.1 * sem_cls_loss + da_loss
+            + SOURCE_COEFFICIENT * jitter_loss_S) * 10.0
+    aux["loss"] = loss
     return loss, aux

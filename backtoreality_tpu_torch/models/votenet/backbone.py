@@ -4,15 +4,18 @@ Counterpart of ``Pointnet2Backbone`` in
 ``backtoreality_tpu/models/votenet/backbone.py`` (reference
 `backbone_module.py:21-133`): 4 single-scale SA layers
 (2048/0.2/64 -> 1024/0.4/32 -> 512/0.8/16 -> 256/1.2/16) + 2 FP layers
-back to 1024 seeds @ 256 channels. The bf16 ``f32_tail`` option is not
-ported.
+back to 1024 seeds @ 256 channels. ``Pointnet2BackboneJitter`` adds the
+centre-grouping head of the CenterRefine model (`backbone_module.py:
+136-262`). The bf16 ``f32_tail`` option is not ported.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
-from backtoreality_tpu_torch.nn import FPModule, SAModuleVotes
+from backtoreality_tpu_torch.nn import (FPModule, SAModuleCenters,
+                                        SAModuleVotes)
 
 
 class Pointnet2Backbone(nn.Module):
@@ -74,4 +77,38 @@ class Pointnet2Backbone(nn.Module):
         num_seed = end_points["fp2_xyz"].shape[1]
         # seed indices into the original cloud (`backbone_module.py:132`)
         end_points["fp2_inds"] = end_points["sa1_inds"][:, 0:num_seed]
+        return end_points
+
+
+class Pointnet2BackboneJitter(nn.Module):
+    """Backbone + centre-jitter head (`Pointnet2Backbone_jitter`,
+    `backbone_module.py:136-262`): groups the FP2 seed features (at the
+    sa2 positions) around given GT centres and appends the class one-hot,
+    giving `center_features` for the jitter-prediction net."""
+
+    def __init__(self, num_class: int = 22, input_feature_dim: int = 0,
+                 query_mode: str = "stratified",
+                 fps_candidates: int | None = None):
+        super().__init__()
+        self.num_class = num_class
+        self.backbone = Pointnet2Backbone(
+            input_feature_dim=input_feature_dim, query_mode=query_mode,
+            fps_candidates=fps_candidates)
+        # 64 centres at most, r=0.8, ONE mlp layer 256(+3 xyz) -> 128,
+        # no radius normalization (`backbone_module.py:187-195`)
+        self.ctjt = SAModuleCenters(radius=0.8, nsample=16, in_features=256,
+                                    mlp=[128], query_mode=query_mode)
+
+    def forward(self, pointcloud, center_label, sem_cls_label,
+                end_points=None):
+        """center_label (B, K, 3) GT centres; sem_cls_label (B, K) int.
+
+        Adds `center_features` (B, K, 128 + num_class) to end_points
+        (`backbone_module.py:257-260`)."""
+        end_points = self.backbone(pointcloud, end_points)
+        feats = self.ctjt(end_points["sa2_xyz"], end_points["fp2_features"],
+                          center_label)
+        onehot = torch.eye(self.num_class, dtype=feats.dtype,
+                           device=feats.device)[sem_cls_label.long()]
+        end_points["center_features"] = torch.cat([feats, onehot], dim=-1)
         return end_points

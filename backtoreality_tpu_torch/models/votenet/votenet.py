@@ -22,11 +22,16 @@ class VoteNet(nn.Module):
                  input_feature_dim: int = 0, num_proposal: int = 256,
                  vote_factor: int = 1, sampling: str = "vote_fps",
                  query_mode: str = "stratified",
-                 fps_candidates: int | None = None):
+                 fps_candidates: int | None = None,
+                 backbone: nn.Module | None = None):
+        """`backbone` replaces the plain PointNet++ backbone (the
+        CenterRefine model's has the jitter head)."""
         super().__init__()
-        self.backbone_net = Pointnet2Backbone(
-            input_feature_dim=input_feature_dim, query_mode=query_mode,
-            fps_candidates=fps_candidates)
+        if backbone is None:
+            backbone = Pointnet2Backbone(
+                input_feature_dim=input_feature_dim, query_mode=query_mode,
+                fps_candidates=fps_candidates)
+        self.backbone_net = backbone
         self.vgen = VotingModule(vote_factor, 256)
         self.pnet = ProposalModule(
             num_class=num_class, num_heading_bin=num_heading_bin,
@@ -36,8 +41,10 @@ class VoteNet(nn.Module):
 
     def forward(self, point_clouds):
         """point_clouds (B, N, 3+C). Returns the end_points dict."""
-        end_points = self.backbone_net(point_clouds)
+        return self.heads(self.backbone_net(point_clouds))
 
+    def heads(self, end_points):
+        """Voting and proposals on the backbone's end_points."""
         xyz = end_points["fp2_xyz"]
         features = end_points["fp2_features"]
         end_points["seed_inds"] = end_points["fp2_inds"]

@@ -3,7 +3,8 @@
 from backtoreality_tpu_torch.nn.norm import (BatchNorm, bn_momentum_schedule,
                                              set_bn_momentum)
 from backtoreality_tpu_torch.nn.mlp import PointwiseMLP, SharedMLP
-from backtoreality_tpu_torch.nn.sa_fp import FPModule, SAModuleVotes
+from backtoreality_tpu_torch.nn.sa_fp import (FPModule, SAModuleCenters,
+                                              SAModuleVotes)
 
 __all__ = [
     "BatchNorm",
@@ -12,5 +13,6 @@ __all__ = [
     "SharedMLP",
     "PointwiseMLP",
     "SAModuleVotes",
+    "SAModuleCenters",
     "FPModule",
 ]

@@ -1,8 +1,9 @@
 """Set-Abstraction and Feature-Propagation modules.
 
 Counterpart of ``backtoreality_tpu/nn/sa_fp.py`` (reference
-`pointnet2_modules.py`: PointnetSAModuleVotes :164-272, PointnetFPModule
-:454-514), channels-last (B, N, C):
+`pointnet2_modules.py`: PointnetSAModuleVotes :164-272,
+PointnetSAModuleCenters :357-451, PointnetFPModule :454-514),
+channels-last (B, N, C):
 
 * FPS and stratified ball query from the op library (CUDA kernels on the
   card);
@@ -10,8 +11,9 @@ Counterpart of ``backtoreality_tpu/nn/sa_fp.py`` (reference
   `ops.group_localize_stratified`, one kernel on the card) -> SharedMLP ->
   max-pool over the neighbourhood.
 
-Only what VoteNet runs is ported: the stratified query, radius-normalized
-xyz concatenated to the features, and max pooling.
+Only what VoteNet runs is ported: the stratified query, xyz concatenated
+to the features (radius-normalized in `SAModuleVotes`, not in
+`SAModuleCenters`), and max pooling.
 """
 
 from __future__ import annotations
@@ -64,6 +66,36 @@ class SAModuleVotes(nn.Module):
         new_xyz = ops.gather_points(xyz, inds)
         new_features = self.mlp(self._group(xyz, new_xyz, features))
         return new_xyz, torch.amax(new_features, dim=2), inds
+
+
+class SAModuleCenters(nn.Module):
+    """Set abstraction around *given* centres — the jitter head
+    (`PointnetSAModuleCenters`, `pointnet2_modules.py:357-451`, with
+    use_xyz on, normalize_xyz off, max pooling).
+
+    The grouping is `ops.group_localize_stratified` with radius 1.0: the
+    layer does not normalize the local coordinates, and x / 1.0 == x in
+    IEEE arithmetic, so the fused entry gives the un-normalized grouping
+    bit for bit."""
+
+    def __init__(self, radius: float, nsample: int, in_features: int,
+                 mlp: tp.Sequence[int], query_mode: str = "stratified"):
+        super().__init__()
+        if query_mode != "stratified":
+            raise NotImplementedError(
+                f"query_mode {query_mode!r} is not ported")
+        self.radius = radius
+        self.nsample = nsample
+        self.mlp = SharedMLP(3 + in_features, mlp)
+
+    def forward(self, xyz, features, centers):
+        """xyz (B,N,3); features (B,N,C); centers (B,M,3). Returns
+        (B, M, mlp[-1]) features grouped at the centres."""
+        idx, hit = ops.ball_query_stratified(
+            xyz, centers, self.radius, self.nsample, return_hit=True)
+        grouped = ops.group_localize_stratified(xyz, features, centers, idx,
+                                                hit, 1.0)
+        return torch.amax(self.mlp(grouped), dim=2)
 
 
 class FPModule(nn.Module):

@@ -4,9 +4,10 @@ Counterpart of the parts of ``backtoreality_tpu/train/common.py`` that
 the FSB recipe uses: the reference's epoch-step learning rate and BN
 momentum schedules, Adam/AdamW with optax's defaults and an optional
 global-norm clip in optax's formula, atomic checkpoints of the model and
-optimizer, a metric meter and the train logger. Single process; the
-multi-host rendezvous, preemption guard and cross-stage partial restore
-are not ported.
+optimizer, the cross-stage partial restore (BR weights grafted into
+CenterRefine, the JAX package's checkpoints into the port), a metric
+meter and the train logger. Single process; the multi-host rendezvous
+and the preemption guard are not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import typing as tp
 import numpy as np
 import torch
 
+from backtoreality_tpu_torch import bridge
 from backtoreality_tpu_torch.nn.norm import bn_momentum_schedule
 
 # ---------------------------------------------------------------------------
@@ -118,6 +120,47 @@ def save_checkpoint(path, model: torch.nn.Module,
 def load_checkpoint(path) -> dict:
     """The dict written by :func:`save_checkpoint`, on the CPU."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_weights(path) -> tuple[dict, int | None]:
+    """(state_dict, epoch) from any of the three checkpoint kinds, told
+    apart by their leading bytes: a JAX package checkpoint (msgpack,
+    gzipped or not; through `bridge`), a ``torch.save`` of a state_dict
+    (epoch None), or a training checkpoint of :func:`save_checkpoint`."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    if head != b"PK":  # torch.save writes a zip archive
+        variables, epoch = bridge.read_jax_checkpoint(path)
+        return bridge.state_dict_from_jax(variables), epoch
+    state = load_checkpoint(path)
+    if "model" in state and "optimizer" in state:
+        return state["model"], state["epoch"]
+    return state, None
+
+
+def partial_restore(model: torch.nn.Module, source: dict, log=None) -> int:
+    """The `strict=False` analog (``backtoreality_tpu/train/common.py::
+    partial_restore``): every entry of `model`'s state_dict whose name is
+    in the state_dict `source` with the same shape takes the source's
+    value, the rest keep theirs (new heads keep their fresh init). Logs
+    the counts of the parameters, then of the running statistics, as the
+    JAX package does: it restores ``params`` and ``batch_stats`` in two
+    calls. Returns the number of entries kept fresh."""
+    state = model.state_dict()
+    params = {name for name, _ in model.named_parameters()}
+    fresh = 0
+    for group in ([k for k in state if k in params],
+                  [k for k in state if k not in params]):
+        copied = [k for k in group if k in source
+                  and tuple(source[k].shape) == tuple(state[k].shape)]
+        for k in copied:
+            state[k] = source[k]
+        fresh += len(group) - len(copied)
+        if log:
+            log(f"partial restore: copied {len(copied)} leaves, kept"
+                f" {len(group) - len(copied)} fresh")
+    model.load_state_dict(state)
+    return fresh
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,19 @@
 """Standalone evaluation entry point (the serving path).
 
 Counterpart of ``backtoreality_tpu/train/evaluate.py`` for
-``--model votenet --kind plain``: load a checkpoint, run the detector
-forward over a split, decode and NMS the boxes, print per-class AP/AR at
-the requested IoU thresholds. It runs on the CUDA card unless
-``--device cpu`` is given, and raises if no card is present and the CPU
-was not asked for.
+``--model votenet``: load a checkpoint, run the detector forward over a
+split, decode and NMS the boxes, print per-class AP/AR at the requested
+IoU thresholds, over ``--eval_seeds`` point-subsample seeds. It runs on
+the CUDA card unless ``--device cpu`` is given, and raises if no card is
+present and the CPU was not asked for.
 
-Checkpoints are ``torch.save`` files of the port's ``state_dict``
-(``bridge.state_dict_from_jax`` converts the JAX package's variables),
-or the training checkpoints of ``train/votenet.py``
-(``{"epoch", "model", "optimizer"}``), whose ``"model"`` entry is read.
-Not ported yet: BN recalibration, ``--eval_seeds > 1``, the ``da`` and
-``da_jitter`` kinds, GroupFree3D and ``--bf16``.
+Checkpoints are the JAX package's msgpack checkpoints (gzipped or not),
+``torch.save`` files of the port's ``state_dict``, or the training
+checkpoints of ``train/votenet.py``; ``common.load_weights`` tells them
+apart. A checkpoint must cover every entry of the ``--kind`` graph:
+one trained with another graph is refused rather than scored with
+fresh weights. Not ported yet: BN recalibration, GroupFree3D and
+``--bf16``.
 
 Usage:
   python -m backtoreality_tpu_torch.train.evaluate --model votenet \
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from backtoreality_tpu_torch.data import get_config
@@ -33,7 +35,9 @@ from backtoreality_tpu_torch.eval import (
     parse_groundtruths,
     parse_predictions,
 )
-from backtoreality_tpu_torch.models.votenet import VoteNet
+from backtoreality_tpu_torch.models.votenet import (VoteNet, VoteNetDA,
+                                                    VoteNetDAJitter)
+from backtoreality_tpu_torch.train import common
 
 # model-output keys needed by host-side eval
 EVAL_KEYS = (
@@ -81,8 +85,12 @@ def _input_dim(flags) -> int:
     return int(not flags.no_height) + 3 * int(flags.use_color)
 
 
-def build_model(flags, cfg) -> VoteNet:
-    return VoteNet(
+MODELS = {"plain": VoteNet, "da": VoteNetDA, "da_jitter": VoteNetDAJitter}
+
+
+def build_model(flags, cfg, kind: str = "plain") -> VoteNet:
+    """The VoteNet graph `kind` (plain, da or da_jitter) at `flags`."""
+    return MODELS[kind](
         num_class=cfg.num_class,
         num_heading_bin=cfg.num_heading_bin,
         num_size_cluster=cfg.num_size_cluster,
@@ -93,6 +101,15 @@ def build_model(flags, cfg) -> VoteNet:
         sampling=flags.cluster_sampling,
         query_mode=flags.query_mode,
         fps_candidates=flags.fps_candidates)
+
+
+def model_args(batch, jitter: bool) -> tuple:
+    """The model's inputs from a batch: the point clouds, and for the
+    jitter model also the centre and class labels."""
+    if jitter:
+        return (batch["point_clouds"], batch["center_label"],
+                batch["sem_cls_label"])
+    return (batch["point_clouds"],)
 
 
 def resolve_device(name: str | None) -> torch.device:
@@ -109,37 +126,61 @@ def resolve_device(name: str | None) -> torch.device:
     return device
 
 
+def _print_metrics(name, t, runs):
+    """The JAX package's print: one seed's metrics, or each key's mean
+    +/- sigma (with the seeds' values for mAP and AR)."""
+    print(f"===== {name} @ IoU {t} =====")
+    if len(runs) == 1:
+        for key in sorted(runs[0]):
+            print(f"  {key}: {runs[0][key]:.4f}")
+        return
+    for key in ("mAP", "AR"):
+        vals = np.asarray([r[key] for r in runs])
+        draws = " ".join(f"{v:.4f}" for v in vals)
+        print(f"  {key}: {vals.mean():.4f} +/- {vals.std(ddof=1):.4f}"
+              f"  (seeds: {draws})")
+    for key in sorted(runs[0]):
+        if key not in ("mAP", "AR"):
+            vals = np.asarray([r[key] for r in runs])
+            print(f"  {key}: {vals.mean():.4f} +/- {vals.std(ddof=1):.4f}")
+
+
 def main(argv=None):
-    """Returns {(prefix, iou_threshold): metrics dict}."""
+    """Returns {(prefix, iou_threshold): metrics}: each key's mean over
+    the seeds, and under "seeds" every seed's metrics dict."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", choices=["votenet"], default="votenet")
     parser.add_argument("--eval_seeds", type=int, default=1,
-                        help="only 1 is ported")
+                        help="repeat the eval under N different"
+                             " point-subsample seeds and report"
+                             " mean +/- sigma")
     if argv is None:
         import sys
 
         argv = sys.argv[1:]
     pre, rest = parser.parse_known_args(argv)
-    if pre.eval_seeds != 1:
-        raise SystemExit("--eval_seeds > 1 is not ported")
 
     sub = add_common_flags(argparse.ArgumentParser())
     sub.add_argument("--split", default="val")
-    sub.add_argument("--kind", default="plain", choices=["plain"])
+    sub.add_argument("--kind", default="plain", choices=sorted(MODELS),
+                     help="model graph the checkpoint was trained with"
+                          " (BR -> da, CenterRefine -> da_jitter)")
     flags = sub.parse_args(rest)
     if not flags.checkpoint_path:
         raise SystemExit("--checkpoint_path is required")
     device = resolve_device(flags.device)
     cfg = get_config(flags.dataset)
 
-    model = build_model(flags, cfg)
-    state = torch.load(flags.checkpoint_path, map_location="cpu",
-                       weights_only=True)
-    if "model" in state:  # a training checkpoint
-        state = state["model"]
-    model.load_state_dict(state)
+    model = build_model(flags, cfg, flags.kind)
+    state, epoch = common.load_weights(flags.checkpoint_path)
+    if common.partial_restore(model, state, log=print):
+        # a leaf left at its fresh init would be scored as if trained
+        raise SystemExit(
+            f"{flags.checkpoint_path} does not cover the --kind"
+            f" {flags.kind} model: it was trained with another graph")
+    print(f"loaded checkpoint {flags.checkpoint_path}"
+          + ("" if epoch is None else f" from epoch {epoch}"))
     model.to(device).eval()
-    print(f"loaded checkpoint {flags.checkpoint_path}")
 
     ds = DetectionDataset(
         cfg, flags.data_root, split=flags.split, num_points=flags.num_point,
@@ -149,26 +190,33 @@ def main(argv=None):
                                  drop_last=False)
     print(f"eval scans: {len(ds)}")
 
+    jitter = flags.kind == "da_jitter"
     thresholds = [flags.ap_iou_thresh, 0.5]
     config_dict = dict(EVAL_CONFIG_DICT, dataset_config=cfg)
-    calcs = {t: APCalculator(t, cfg.class2type) for t in thresholds}
-    with torch.inference_mode():
-        for batch in loader:
-            pc = torch.from_numpy(batch["point_clouds"]).to(device)
-            end_points = model(pc)
-            outs = {k: end_points[k].cpu().numpy() for k in EVAL_KEYS}
-            preds = parse_predictions(outs, config_dict)
-            gts = parse_groundtruths(batch, config_dict)
-            for calc in calcs.values():
-                calc.step(preds, gts)
+    history = {t: [] for t in thresholds}
+    base_seed = ds.seed
+    for si in range(max(1, pre.eval_seeds)):
+        # a different dataset seed redraws every scan's point subsample
+        # (and nothing else: augment=False)
+        ds.seed = base_seed + si
+        calcs = {t: APCalculator(t, cfg.class2type) for t in thresholds}
+        with torch.inference_mode():
+            for batch in loader:
+                end_points = model(*(torch.from_numpy(a).to(device)
+                                     for a in model_args(batch, jitter)))
+                outs = {k: end_points[k].cpu().numpy() for k in EVAL_KEYS}
+                preds = parse_predictions(outs, config_dict)
+                gts = parse_groundtruths(batch, config_dict)
+                for calc in calcs.values():
+                    calc.step(preds, gts)
+        for t, calc in calcs.items():
+            history[t].append(calc.compute_metrics())
 
     results = {}
-    for t, calc in calcs.items():
-        metrics = calc.compute_metrics()
-        results[("", t)] = metrics
-        print(f"===== votenet @ IoU {t} =====")
-        for key in sorted(metrics):
-            print(f"  {key}: {metrics[key]:.4f}")
+    for t, runs in history.items():
+        _print_metrics("votenet", t, runs)
+        mean = {k: float(np.mean([r[k] for r in runs])) for k in runs[0]}
+        results[("", t)] = dict(mean, seeds=runs)
     return results
 
 

@@ -1,28 +1,36 @@
-"""VoteNet training loop, the FSB recipe.
+"""VoteNet training loops: FSB, WSB, BR and BR+CenterRefine.
 
-Counterpart of the FSB path of ``backtoreality_tpu/train/votenet.py``
-(reference `train_Votenet_FSB.py`): one train step (train-mode forward,
-`losses/votenet.get_loss`, backward, Adam), host-side learning-rate and
-BN-momentum schedules set before each epoch, a checkpoint of model and
-optimizer after each epoch, and the reference evaluation protocol every
-`eval_freq` epochs. It runs on the CUDA card unless ``--device cpu`` is
-given, and raises if no card is present and the CPU was not asked for.
+Counterpart of ``backtoreality_tpu/train/votenet.py`` (reference
+`train_Votenet_{FSB,WSB,BR,BR_CenterRefine}.py`): a train step
+(train-mode forward, the recipe's criterion, backward, Adam), host-side
+learning-rate and BN-momentum schedules set before each epoch, a
+checkpoint of model and optimizer after each epoch, and the reference
+evaluation protocol every `eval_freq` epochs. BR and CenterRefine train
+on two domains at once: each step runs the source (virtual scenes, full
+labels) and then the target (real scenes, weak labels) forward, the BN
+running statistics moving through both in that order, and takes one
+backward and one Adam step on the domain-adaptation criterion. It runs on
+the CUDA card unless ``--device cpu`` is given, and raises if no card is
+present and the CPU was not asked for.
 
 Flag names and defaults are the JAX package's. Not ported, and so
 refused by the parser: ``--multihost``, ``--num_devices``, ``--bf16``,
-``--f32_tail``, ``--bn_recal_batches``, ``--profile_dir``,
-``--guard_every_steps`` and ``--ram_cache_gb`` (the dataset keeps its
-default RAM cache of 8 GiB); the WSB, BR and CenterRefine recipes.
+``--f32_tail``, ``--bn_recal_batches`` (and with it BN recalibration
+before evaluation), ``--profile_dir``, ``--guard_every_steps`` and
+``--ram_cache_gb`` (the datasets keep their default RAM cache of 8 GiB).
 
 Usage:
   python -m backtoreality_tpu_torch.train.votenet_fsb --data_root D \
       [--log_dir log_votenet] [--device cpu] [...]
+  python -m backtoreality_tpu_torch.train.votenet_br --data_root REAL \
+      --source_data_root VIRTUAL [...]
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import pathlib
 import time
 
 import numpy as np
@@ -30,7 +38,7 @@ import torch
 
 from backtoreality_tpu_torch.data import get_config
 from backtoreality_tpu_torch.data.dataset import DetectionDataset
-from backtoreality_tpu_torch.data.loader import DetectionDataLoader
+from backtoreality_tpu_torch.data.loader import DetectionDataLoader, cycle
 from backtoreality_tpu_torch.eval import (APCalculator, parse_groundtruths,
                                           parse_predictions)
 from backtoreality_tpu_torch.losses import votenet as vote_losses
@@ -38,11 +46,14 @@ from backtoreality_tpu_torch.nn import set_bn_momentum
 from backtoreality_tpu_torch.train import common
 from backtoreality_tpu_torch.train.evaluate import (EVAL_CONFIG_DICT,
                                                     EVAL_KEYS, build_model,
+                                                    model_args,
                                                     resolve_device)
 from backtoreality_tpu_torch.train.observability import ScalarHistory
 
 __all__ = ["add_common_flags", "build_model", "make_train_step",
-           "make_eval_step", "evaluate", "main"]
+           "make_da_train_step", "make_eval_step", "evaluate", "main"]
+
+RECIPES = ("fsb", "wsb", "br", "br_center_refine")
 
 
 def add_common_flags(parser: argparse.ArgumentParser):
@@ -95,32 +106,62 @@ def _scalars(aux):
     return {k: v.detach() for k, v in aux.items() if v.dim() == 0}
 
 
-def make_train_step(model, optimizer, criterion, cfg):
+def _update(model, optimizer, loss):
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+
+
+def make_train_step(model, optimizer, criterion, cfg, *, jitter=False):
     """step(batch, bn_momentum) -> scalar aux tensors (on the device).
 
     One train-mode forward, the criterion, backward and an optimizer
-    step; BN running statistics move with `bn_momentum`."""
+    step; BN running statistics move with `bn_momentum`. With `jitter`,
+    the model also takes the batch's centre and class labels."""
 
     def step(batch, bn_momentum):
         model.train()
         set_bn_momentum(model, bn_momentum)
-        end_points = model(batch["point_clouds"])
+        end_points = model(*model_args(batch, jitter))
         loss, aux = criterion({**batch, **end_points}, cfg)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
+        _update(model, optimizer, loss)
         return _scalars(aux)
 
     return step
 
 
-def make_eval_step(model, criterion, cfg):
+def make_da_train_step(model, optimizer, cfg, *, jitter=False):
+    """step(batch_S, batch_T, bn_momentum, epoch) -> scalar aux tensors.
+
+    The source forward, then the target forward (the BN running
+    statistics move through both, in that order), the BR criterion
+    (`get_loss_DA`), or with `jitter` the CenterRefine one
+    (`get_loss_DA_jitter`, which reads `epoch`), one backward and one
+    optimizer step."""
+
+    def step(batch_S, batch_T, bn_momentum, epoch):
+        model.train()
+        set_bn_momentum(model, bn_momentum)
+        ep_S = {**batch_S, **model(*model_args(batch_S, jitter))}
+        ep_T = {**batch_T, **model(*model_args(batch_T, jitter))}
+        if jitter:
+            loss, aux = vote_losses.get_loss_DA_jitter(ep_S, ep_T, epoch,
+                                                       cfg)
+        else:
+            loss, aux = vote_losses.get_loss_DA(ep_S, ep_T, cfg)
+        _update(model, optimizer, loss)
+        return _scalars(aux)
+
+    return step
+
+
+def make_eval_step(model, criterion, cfg, *, jitter=False):
     """step(batch) -> (predictions for EVAL_KEYS, scalar aux)."""
 
     def step(batch):
         model.eval()
         with torch.no_grad():
-            outs = model(batch["point_clouds"])
+            outs = model(*model_args(batch, jitter))
             _, aux = criterion({**batch, **outs}, cfg)
         return {k: outs[k] for k in EVAL_KEYS}, _scalars(aux)
 
@@ -149,64 +190,83 @@ def evaluate(loader, eval_step, cfg, device, logger, ap_iou_thresh=0.25):
     return metrics, means
 
 
-def _train_loop_single(flags, recipe):
-    """FSB (full labels). Returns the trained model and its optimizer."""
-    if recipe != "fsb":
-        raise ValueError(f"recipe {recipe!r} is not ported")
-    device = resolve_device(flags.device)
-    cfg = get_config(flags.dataset)
-    logger = common.setup_logger(flags.log_dir)
-    common.dump_config(flags.log_dir, vars(flags))
-
-    train_ds = DetectionDataset(
-        cfg, flags.data_root, split=flags.train_split,
-        num_points=flags.num_point, use_color=flags.use_color,
-        use_height=not flags.no_height, augment=True, seed=flags.seed)
-    val_ds = DetectionDataset(
-        cfg, flags.val_data_root or flags.data_root,
-        split=flags.val_split, num_points=flags.num_point,
+def _dataset(flags, cfg, root, split, augment, center_jitter=0.0):
+    return DetectionDataset(
+        cfg, root, split=split, num_points=flags.num_point,
         use_color=flags.use_color, use_height=not flags.no_height,
-        augment=False, seed=flags.seed)
-    train_loader = DetectionDataLoader(train_ds, flags.batch_size,
-                                       seed=flags.seed)
-    val_loader = DetectionDataLoader(val_ds, flags.batch_size,
-                                     shuffle=False, drop_last=False)
-    logger.info("train scans: %d, val scans: %d", len(train_ds),
-                len(val_ds))
+        augment=augment, center_jitter=center_jitter, seed=flags.seed)
 
-    torch.manual_seed(flags.seed)
-    model = build_model(flags, cfg).to(device)
-    optimizer = common.make_optimizer(
-        model.parameters(), "adam", flags.weight_decay,
-        lr0=flags.learning_rate)
-    criterion = vote_losses.get_loss
 
-    start_epoch = 0
-    if flags.checkpoint_path:
-        ckpt = common.load_checkpoint(flags.checkpoint_path)
-        model.load_state_dict(ckpt.get("model", ckpt))
-        ckpt_epoch = ckpt.get("epoch", -1)
-        if flags.resume:
-            if "optimizer" not in ckpt:
-                raise ValueError(f"--resume needs a training checkpoint;"
-                                 f" {flags.checkpoint_path} holds weights"
-                                 " only")
-            optimizer.load_state_dict(ckpt["optimizer"])
-            start_epoch = ckpt_epoch + 1
-        logger.info("restored %s from %s (epoch %d)",
-                    "full state" if flags.resume else "weights",
-                    flags.checkpoint_path, ckpt_epoch)
-    history = ScalarHistory(flags.log_dir)
-
-    train_step = make_train_step(model, optimizer, criterion, cfg)
-    eval_step = make_eval_step(model, criterion, cfg)
+def _schedules(flags):
     lr_fn = common.step_lr(
         flags.learning_rate,
         [int(x) for x in flags.lr_decay_steps.split(",")],
         [float(x) for x in flags.lr_decay_rates.split(",")])
     bn_fn = common.bn_momentum_fn(step=flags.bn_decay_step,
                                   rate=flags.bn_decay_rate)
+    return lr_fn, bn_fn
 
+
+def _setup(flags, kind):
+    """Device, config, logger, model (seeded) and its Adam."""
+    device = resolve_device(flags.device)
+    cfg = get_config(flags.dataset)
+    logger = common.setup_logger(flags.log_dir)
+    common.dump_config(flags.log_dir, vars(flags))
+    torch.manual_seed(flags.seed)
+    model = build_model(flags, cfg, kind).to(device)
+    optimizer = common.make_optimizer(
+        model.parameters(), "adam", flags.weight_decay,
+        lr0=flags.learning_rate)
+    return device, cfg, logger, model, optimizer
+
+
+def _resume(model, optimizer, path, logger):
+    """Model and optimizer state from a training checkpoint; returns the
+    epoch to start at."""
+    ckpt = common.load_checkpoint(path)
+    if "optimizer" not in ckpt:
+        raise ValueError(f"--resume needs a training checkpoint; {path}"
+                         " holds weights only")
+    model.load_state_dict(ckpt["model"])
+    optimizer.load_state_dict(ckpt["optimizer"])
+    logger.info("restored full state from %s (epoch %d)", path,
+                ckpt["epoch"])
+    return ckpt["epoch"] + 1
+
+
+def _train_loop_single(flags, recipe):
+    """FSB (full labels) / WSB (weak, centre-jittered labels). Returns
+    the trained model and its optimizer."""
+    device, cfg, logger, model, optimizer = _setup(flags, "plain")
+    jitter = 0.0 if recipe == "fsb" else flags.center_jitter
+    train_ds = _dataset(flags, cfg, flags.data_root, flags.train_split,
+                        augment=True, center_jitter=jitter)
+    val_ds = _dataset(flags, cfg, flags.val_data_root or flags.data_root,
+                      flags.val_split, augment=False)
+    train_loader = DetectionDataLoader(train_ds, flags.batch_size,
+                                       seed=flags.seed)
+    val_loader = DetectionDataLoader(val_ds, flags.batch_size,
+                                     shuffle=False, drop_last=False)
+    logger.info("train scans: %d, val scans: %d", len(train_ds),
+                len(val_ds))
+    criterion = (vote_losses.get_loss if recipe == "fsb"
+                 else vote_losses.get_loss_weak)
+
+    start_epoch = 0
+    if flags.checkpoint_path and flags.resume:
+        start_epoch = _resume(model, optimizer, flags.checkpoint_path,
+                              logger)
+    elif flags.checkpoint_path:
+        ckpt = common.load_checkpoint(flags.checkpoint_path)
+        model.load_state_dict(ckpt.get("model", ckpt))
+        logger.info("restored weights from %s (epoch %d)",
+                    flags.checkpoint_path, ckpt.get("epoch", -1))
+    history = ScalarHistory(flags.log_dir)
+
+    train_step = make_train_step(model, optimizer, criterion, cfg)
+    eval_step = make_eval_step(model, criterion, cfg)
+    lr_fn, bn_fn = _schedules(flags)
     ckpt_path = os.path.join(flags.log_dir, "checkpoint.tar")
     for epoch in range(start_epoch, flags.max_epoch):
         common.set_learning_rate(optimizer, lr_fn(epoch))
@@ -236,15 +296,122 @@ def _train_loop_single(flags, recipe):
     return model, optimizer
 
 
+def _train_loop_da(flags, recipe):
+    """BR (DA) / BR+CenterRefine (DA + jitter head). Returns the trained
+    model and its optimizer."""
+    jitter_model = recipe == "br_center_refine"
+    device, cfg, logger, model, optimizer = _setup(
+        flags, "da_jitter" if jitter_model else "da")
+
+    # CenterRefine jitters the SOURCE labels too
+    # (`train_Votenet_BR_CenterRefine.py:152-154`); BR trains the source
+    # with its full exact labels (`train_Votenet_BR.py:165-167`)
+    train_ds_S = _dataset(
+        flags, cfg, flags.source_data_root, "train_aug", augment=True,
+        center_jitter=flags.center_jitter if jitter_model else 0.0)
+    train_ds_T = _dataset(flags, cfg, flags.data_root, flags.train_split,
+                          augment=True, center_jitter=flags.center_jitter)
+    val_ds = _dataset(flags, cfg, flags.val_data_root or flags.data_root,
+                      flags.val_split, augment=False)
+    loader_S = DetectionDataLoader(train_ds_S, flags.batch_size,
+                                   seed=flags.seed)
+    loader_T = DetectionDataLoader(train_ds_T, flags.batch_size,
+                                   seed=flags.seed + 1)
+    val_loader = DetectionDataLoader(val_ds, flags.batch_size,
+                                     shuffle=False, drop_last=False)
+    logger.info("S scans: %d, T scans: %d, val: %d", len(train_ds_S),
+                len(train_ds_T), len(val_ds))
+
+    ckpt_name = ("train_BR_CenterRefine.tar" if jitter_model
+                 else "train_BR.tar")
+    ckpt_path = os.path.join(flags.log_dir, ckpt_name)
+    start_epoch = 0
+    if flags.resume:
+        # resume this stage in place: model, optimizer and epoch from
+        # the stage's own checkpoint, or --checkpoint_path if given
+        src = flags.checkpoint_path or ckpt_path
+        if pathlib.Path(src).exists():
+            start_epoch = _resume(model, optimizer, src, logger)
+        else:
+            logger.info("--resume: no checkpoint at %s, fresh start", src)
+    elif flags.checkpoint_path:
+        # cross-stage grafting: BR weights into the jitter-augmented
+        # model (reference `strict=False`,
+        # `train_Votenet_BR_CenterRefine.py:213-218`)
+        state, ckpt_epoch = common.load_weights(flags.checkpoint_path)
+        common.partial_restore(model, state, log=logger.info)
+        logger.info("grafted checkpoint %s (epoch %d)",
+                    flags.checkpoint_path, ckpt_epoch)
+    history = ScalarHistory(flags.log_dir)
+
+    train_step = make_da_train_step(model, optimizer, cfg,
+                                    jitter=jitter_model)
+    # eval uses the weak criterion on the target domain
+    eval_step = make_eval_step(model, vote_losses.get_loss_weak, cfg,
+                               jitter=jitter_model)
+    lr_fn, bn_fn = _schedules(flags)
+    steps_per_epoch = min(len(loader_S), len(loader_T))
+    for epoch in range(start_epoch, flags.max_epoch):
+        common.set_learning_rate(optimizer, lr_fn(epoch))
+        bnm = bn_fn(epoch)
+        loader_S.set_epoch(epoch)
+        loader_T.set_epoch(epoch)
+        # zip the short loader with a cycle of the longer one
+        # (`train_Votenet_BR.py:267`)
+        if len(loader_S) <= len(loader_T):
+            pairs = zip(cycle(loader_S), loader_T)
+        else:
+            pairs = zip(loader_S, cycle(loader_T))
+        t0 = time.time()
+        aux_hist = []
+        for batch_S, batch_T in pairs:
+            aux_hist.append(train_step(to_device(batch_S, device),
+                                       to_device(batch_T, device), bnm,
+                                       epoch))
+            if len(aux_hist) >= steps_per_epoch:
+                break
+        means = common.fetch_aux_means(aux_hist)  # waits for the device
+        dt = time.time() - t0
+        nb = len(aux_hist)
+        logger.info(
+            "epoch %03d lr %.2e loss %.4f obj_acc %.3f "
+            "(%d pair-batches, %.1fs)",
+            epoch, lr_fn(epoch), means.get("loss", float("nan")),
+            means.get("obj_acc", float("nan")), nb, dt)
+        history.append(epoch, means, lr=lr_fn(epoch),
+                       scenes_per_sec=nb * flags.batch_size
+                       / max(dt, 1e-9))
+        common.save_checkpoint(ckpt_path, model, optimizer, epoch)
+        if (epoch + 1) % flags.eval_freq == 0:
+            metrics, _ = evaluate(val_loader, eval_step, cfg, device,
+                                  logger, flags.ap_iou_thresh)
+            history.append(epoch, {"mAP": metrics["mAP"],
+                                   "AR": metrics["AR"]}, kind="eval")
+            with open(os.path.join(flags.log_dir, "Eval_mAP.txt"),
+                      "a") as f:
+                f.write(f"{epoch}\t{metrics['mAP']:.4f}\n")
+    return model, optimizer
+
+
 def main(recipe: str, argv=None):
-    """Parse `argv` (default: the command line) and train `recipe`;
-    only "fsb" is ported."""
-    if recipe != "fsb":
-        raise ValueError(f"recipe {recipe!r} is not ported (only fsb)")
+    """Parse `argv` (default: the command line) and train `recipe`, one
+    of fsb, wsb, br and br_center_refine. Returns the trained model and
+    its optimizer."""
+    if recipe not in RECIPES:
+        raise ValueError(f"unknown recipe {recipe!r}")
     parser = argparse.ArgumentParser()
     add_common_flags(parser)
     parser.add_argument("--train_split", default="train")
     parser.add_argument("--val_split", default="val")
     parser.add_argument("--val_data_root", default=None)
+    if recipe in ("wsb", "br", "br_center_refine"):
+        parser.add_argument("--center_jitter", type=float, default=0.1)
+    if recipe in ("br", "br_center_refine"):
+        parser.add_argument("--source_data_root", required=True,
+                            help="virtual-scene data root (obj_aug)")
+        parser.add_argument("--dataset_version", default="point",
+                            choices=["point", "mesh"])
     flags = parser.parse_args(argv)
-    return _train_loop_single(flags, recipe)
+    if recipe in ("fsb", "wsb"):
+        return _train_loop_single(flags, recipe)
+    return _train_loop_da(flags, recipe)

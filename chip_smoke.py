@@ -45,9 +45,23 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    batch, Adam at lr 1e-3, BN momentum 0.5), print its device time by
    kernel, and print (without gating) whether two steps from one state
    give bitwise-equal parameters.
-5. Print the card's name and power limit, one JSON line with every
-   kernel's numbers, and as the last line
-   ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+5. The paper's recipes: the WSB, BR and BR+CenterRefine entry points
+   (``votenet_{wsb,br,br_center_refine}.main``) for one epoch (2 steps)
+   and one evaluation each at the same width, BR and CenterRefine with a
+   virtual-scene source fixture, CenterRefine grafted from BR's
+   checkpoint; the launch counts checked per recipe, and the CenterRefine
+   checkpoint scored through ``evaluate --kind da_jitter``. Then the BR
+   and CenterRefine train steps on one fixed pair of batches: wall time,
+   phases, kernels' device time and peak memory.
+6. The checkpoint gate: the JAX package's trained checkpoint
+   (``evidence/round4/ckpt/lad_f32.tar.gz``) read by the port's msgpack
+   reader and scored by ``evaluate.main`` over 3 subsample seeds on the
+   100-scan shapefix val; fails unless each IoU's mean mAP lies within
+   the JAX package's spread of its mean.
+7. Print the card's name and power limit, one JSON line with every
+   kernel's numbers (times summed over the FSB training path's shapes),
+   and as the last line ``{"ok": true, "device": {"platform": "gpu",
+   ...}}``.
 
 It exits nonzero without a CUDA device, and imports nothing of JAX.
 ``--kernels_only`` stops after phase 2 and prints its records as one JSON
@@ -84,6 +98,27 @@ GROUP_GRAD_RTOL = 1e-5
 # a sleep kernel of this many clock cycles (a few ms) keeps the device busy
 # while the host queues the calls that a kernel timing measures
 AHEAD_CYCLES = 10_000_000
+# the paths the launch counters are read on; the training recipes all
+# train with --fps_candidates 8192, and only CenterRefine has the jitter
+# head's layer
+SERVING = ("serving",)
+TRAINING = ("training", "wsb", "br", "br_center_refine")
+ALL_PATHS = SERVING + TRAINING
+JITTER_PATH = ("br_center_refine",)
+# launches per forward (FPS, ball query, the fused grouping) and grouping
+# backwards per train step, by model graph. A DA step runs two forwards
+# and one backward: SA2-SA4 and vote clustering in each, and in
+# CenterRefine the jitter head's layer in each forward and its backward in
+# the source's only (the target's jitter prediction refines labels that
+# are detached)
+PER_FORWARD = {"plain": (5, 5, 5), "da": (5, 5, 5), "da_jitter": (5, 6, 6)}
+BACKWARDS_PER_STEP = {"plain": 4, "da": 8, "da_jitter": 9}
+# the checkpoint gate: the JAX package's scores of lad_f32 on the 100-scan
+# shapefix val (subset FPS over 8192 candidates, 3 subsample seeds;
+# evidence/round5/r5_ladeval_f32.out), mean and its own spread per IoU
+GATE_CHECKPOINT = "evidence/round4/ckpt/lad_f32.tar.gz"
+GATE = {0.25: (0.8210, 0.0064, (0.8234, 0.8138, 0.8258)),
+        0.5: (0.6202, 0.0226, (0.6439, 0.5990, 0.6178))}
 
 
 def require(cond, what: str):
@@ -507,10 +542,13 @@ def check_group(label, points, ctr, radius, nsample, bq, grouping, reps):
 
 
 def check_localize(label, xyz, feats, ctr, radius, nsample, bq, grouping,
-                   reps, needs=()):
+                   reps, needs=(), scale=None):
     """The grouping fused with the localize step against its plain version
     at one input; returns (forward, backward) records, or None without
-    `reps` (a check only).
+    `reps` (a check only). The ball query takes `radius`, the localize
+    step divides by `scale` (default: the radius; the jitter head's layer
+    passes 1.0, and its coordinates must then equal the un-normalized
+    ones bit for bit).
 
     Forward: bit-exact. Gradients of xyz, features and the centres: each
     within GROUP_GRAD_RTOL of the plain backward in float64, relative to
@@ -526,6 +564,7 @@ def check_localize(label, xyz, feats, ctr, radius, nsample, bq, grouping,
     b, n, _ = xyz.shape
     m = ctr.shape[1]
     c = 0 if feats is None else feats.shape[-1]
+    query_radius, radius = radius, radius if scale is None else scale
     got = grouping.group_localize_stratified(xyz, feats, ctr, idx, hit,
                                              radius)
     want = grouping._group_localize_stratified_torch(xyz, feats, ctr, idx,
@@ -534,6 +573,12 @@ def check_localize(label, xyz, feats, ctr, radius, nsample, bq, grouping,
     require(got.shape == (b, m, nsample, 3 + c) and torch.equal(got, want),
             f"localize {label}: forward kernel != plain at"
             f" {(got != want).sum().item()} of {got.numel()} values")
+    if radius == 1.0:
+        local = (grouping._group_points_stratified_torch(xyz, idx, hit)
+                 - ctr[:, :, None, :])
+        require(torch.equal(got[..., :3], local),
+                f"localize {label}: radius 1.0 differs from the"
+                " un-normalized coordinates")
     del got, want
 
     gen = torch.Generator(xyz.device).manual_seed(nsample * (c + 3))
@@ -561,9 +606,9 @@ def check_localize(label, xyz, feats, ctr, radius, nsample, bq, grouping,
     torch.cuda.synchronize()
     errs, worst_abs = {}, 0.0
     for k in names:
-        scale = g64[k].abs().max().item()
+        peak = g64[k].abs().max().item()
         gap = (g1[k].double() - g64[k]).abs().max().item()
-        errs[k] = gap / max(scale, 1e-30)
+        errs[k] = gap / max(peak, 1e-30)
         worst_abs = max(worst_abs, gap)
         require(errs[k] <= GROUP_GRAD_RTOL,
                 f"localize {label}: gradient of {k} off by {errs[k]:.2e} of"
@@ -572,6 +617,8 @@ def check_localize(label, xyz, feats, ctr, radius, nsample, bq, grouping,
                 f"localize {label}: gradient of {k} not bitwise repeatable")
     del g1, g2, g64
     said = ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+    if scale is not None:
+        said += f"; query r={query_radius}, localize /{radius}"
     if not reps:
         print(f"  localize {label:9s} N={n} C={c} M={m} S={nsample}: forward"
               f" bit-exact; gradients repeatable, errors of max |g|: {said}")
@@ -682,31 +729,39 @@ def kernel_times(fn, prefix, calls=20):
     return times
 
 
-def step_phases(model, opt, criterion, cfg, batch, bn_momentum, reps=5):
-    """Median device milliseconds of each phase of the train step (the
-    sequence of `votenet.make_train_step`), CUDA events between
-    phases."""
+def step_phases(model, opt, loss_fn, batches, bn_momentum, jitter=False,
+                reps=5):
+    """Median device milliseconds of each phase of a train step (the
+    sequence of `votenet.make_train_step`, or with two batches, source
+    and target, of `make_da_train_step`), CUDA events between phases.
+    `loss_fn` maps the list of end_points dicts to the loss."""
     import torch
 
     from backtoreality_tpu_torch.nn import set_bn_momentum
+    from backtoreality_tpu_torch.train.evaluate import model_args
 
-    names = ("forward", "loss", "backward", "optimizer")
+    forwards = (["forward"] if len(batches) == 1
+                else [f"forward_{d}" for d in "ST"])
+    names = (*forwards, "loss", "backward", "optimizer")
     times = {k: [] for k in names}
     model.train()
     set_bn_momentum(model, bn_momentum)
     for _ in range(reps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(names) + 1)]
         ev[0].record()
-        end_points = model(batch["point_clouds"])
-        ev[1].record()
-        loss, _ = criterion({**batch, **end_points}, cfg)
-        ev[2].record()
+        end_points = []
+        for i, batch in enumerate(batches):
+            end_points.append({**batch, **model(*model_args(batch, jitter))})
+            ev[i + 1].record()
+        loss = loss_fn(end_points)
+        ev[-3].record()
         opt.zero_grad(set_to_none=True)
         loss.backward()
-        ev[3].record()
+        ev[-2].record()
         opt.step()
-        ev[4].record()
-        ev[4].synchronize()
+        ev[-1].record()
+        ev[-1].synchronize()
         for i, k in enumerate(names):
             times[k].append(ev[i].elapsed_time(ev[i + 1]))
     return {k: statistics.median(v) for k, v in times.items()}
@@ -745,6 +800,33 @@ def reset(counters):
         k.backward_launches = 0
 
 
+def read_counts(counters) -> dict:
+    """The launch counters by name (counters: FPS, ball query, grouping,
+    fused grouping)."""
+    fps_k, bq_k, group_k, localize_k = counters
+    return {"fps": fps_k.launches, "ball_query": bq_k.launches,
+            "group_stratified": group_k.launches,
+            "group_stratified_backward": group_k.backward_launches,
+            "group_localize_stratified": localize_k.launches,
+            "group_localize_stratified_backward":
+                localize_k.backward_launches}
+
+
+def check_counts(label, launches, kind, forwards, steps):
+    """Launches on a path against the model graph's counts: `forwards`
+    forwards (a DA step runs two), `steps` train steps."""
+    want = dict(zip(("fps", "ball_query", "group_localize_stratified"),
+                    (n * forwards for n in PER_FORWARD[kind])))
+    want["group_stratified"] = want["group_localize_stratified"]
+    backward = BACKWARDS_PER_STEP[kind] * steps
+    want["group_stratified_backward"] = backward
+    want["group_localize_stratified_backward"] = backward
+    for name, n in want.items():
+        require(launches[name] == n,
+                f"{label}: {name} launched {launches[name]} times, expected"
+                f" {n} ({forwards} forwards, {steps} steps)")
+
+
 def train_phase(scans, tmp, cfg, counters, header):
     """The FSB entry point on the card, then the bench-config step."""
     import copy
@@ -757,7 +839,6 @@ def train_phase(scans, tmp, cfg, counters, header):
     from backtoreality_tpu_torch.train import common, evaluate, votenet
     from backtoreality_tpu_torch.train import votenet_fsb
 
-    fps_k, bq_k, group_k, localize_k = counters
     log = pathlib.Path(tmp) / "fsb_log"
     epochs = 2
     reset(counters)
@@ -771,25 +852,11 @@ def train_phase(scans, tmp, cfg, counters, header):
     train_s = time.perf_counter() - t0
     steps = epochs * (NUM_SCANS // B)
     forwards = steps + math.ceil(NUM_SCANS / B)  # + one evaluation
-    launches = {"fps": fps_k.launches, "ball_query": bq_k.launches,
-                "group_stratified": group_k.launches,
-                "group_stratified_backward": group_k.backward_launches,
-                "group_localize_stratified": localize_k.launches,
-                "group_localize_stratified_backward":
-                    localize_k.backward_launches}
+    launches = read_counts(counters)
     print(f"[training path] votenet_fsb.main: {steps} steps + one"
           f" evaluation over {NUM_SCANS} scans in {train_s:.1f} s;"
           f" launches {launches}")
-    for name in ("fps", "ball_query", "group_stratified",
-                 "group_localize_stratified"):
-        require(launches[name] == 5 * forwards,
-                f"{name}: {launches[name]} launches in training, expected"
-                f" 5 per forward ({forwards} forwards)")
-    for name in ("group_stratified_backward",
-                 "group_localize_stratified_backward"):
-        require(launches[name] == 4 * steps,
-                f"{name}: {launches[name]} launches, expected 4 per step"
-                f" ({steps} steps)")
+    check_counts("training", launches, "plain", forwards, steps)
     rows = [json.loads(line) for line in
             (log / "metrics.jsonl").read_text().splitlines()]
     losses = [r["loss"] for r in rows if "loss" in r]
@@ -826,7 +893,9 @@ def train_phase(scans, tmp, cfg, counters, header):
           f" of 10 after 2 warm-ups), {B / step_ms * 1e3:.1f} scenes/s,"
           f" peak {peak_gb:.2f} GiB, loss {aux['loss'].item():.4f}"
           f"  | {header}")
-    phases = step_phases(model, opt, vote_losses.get_loss, cfg, batch, 0.5)
+    phases = step_phases(model, opt,
+                         lambda eps: vote_losses.get_loss(eps[0], cfg)[0],
+                         [batch], 0.5)
     print("  phases (median of 5, CUDA events): " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in phases.items()))
     dev_ms = profile_steps(lambda: step(batch, 0.5), "train steps")
@@ -847,6 +916,191 @@ def train_phase(scans, tmp, cfg, counters, header):
     print(f"[determinism] two steps from one state and batch: {differ} of"
           f" {len(after[0])} parameter tensors differ bitwise")
     return launches
+
+
+def recipe_phase(scans, virtual, tmp, counters):
+    """WSB, BR and BR+CenterRefine through their entry points on the card:
+    one epoch (2 steps) and one evaluation each at B=8, N=40000,
+    --fps_candidates 8192, with the launch counts checked per recipe;
+    BR's checkpoint is grafted into CenterRefine, and the CenterRefine
+    checkpoint goes through ``evaluate --kind da_jitter``. Returns the
+    launches by recipe."""
+    import torch
+
+    from backtoreality_tpu_torch.train import (evaluate, votenet_br,
+                                               votenet_br_center_refine,
+                                               votenet_wsb)
+
+    tmp = pathlib.Path(tmp)
+    steps = NUM_SCANS // B  # one epoch; both fixtures hold NUM_SCANS scans
+    evals = math.ceil(NUM_SCANS / B)
+    launches = {}
+    for recipe, entry, kind in (
+            ("wsb", votenet_wsb, "plain"), ("br", votenet_br, "da"),
+            ("br_center_refine", votenet_br_center_refine, "da_jitter")):
+        log = tmp / f"{recipe}_log"
+        args = ["--data_root", str(scans), "--train_split", "all",
+                "--val_split", "all", "--log_dir", str(log), "--device",
+                "cuda", "--num_point", str(N), "--batch_size", str(B),
+                "--fps_candidates", "8192", "--max_epoch", "1",
+                "--eval_freq", "1"]
+        if kind != "plain":
+            args += ["--source_data_root", str(virtual)]
+        if kind == "da_jitter":
+            args += ["--checkpoint_path", str(tmp / "br_log/train_BR.tar")]
+        reset(counters)
+        t0 = time.perf_counter()
+        entry.main(args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[recipe] = read_counts(counters)
+        forwards = (steps if kind == "plain" else 2 * steps) + evals
+        print(f"[training path: {recipe}] votenet_{recipe}.main: {steps}"
+              f" steps + one evaluation in {secs:.1f} s; launches"
+              f" {launches[recipe]}")
+        check_counts(recipe, launches[recipe], kind, forwards, steps)
+        rows = [json.loads(line) for line in
+                (log / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in rows if "loss" in r]
+        maps = [r["mAP"] for r in rows if "mAP" in r]
+        require(len(losses) == 1 and len(maps) == 1
+                and all(map(math.isfinite, losses + maps)),
+                f"{recipe}: loss {losses}, mAP {maps}")
+        print(f"  epoch loss {losses[0]:.4f}, eval mAP@0.25 {maps[0]:.4f}")
+        if kind == "da_jitter":
+            restores = [line.split("] ", 1)[1] for line in
+                        (log / "log_train.txt").read_text().splitlines()
+                        if "partial restore" in line]
+            require(len(restores) == 2
+                    and not any("copied 0 " in r for r in restores),
+                    f"BR -> CenterRefine graft: {restores}")
+            print("  BR grafted into CenterRefine: params "
+                  + "; running statistics ".join(restores))
+    results = evaluate.main([
+        "--kind", "da_jitter", "--checkpoint_path",
+        str(tmp / "br_center_refine_log/train_BR_CenterRefine.tar"),
+        "--data_root", str(scans), "--split", "all", "--num_point", str(N),
+        "--batch_size", str(B), "--fps_candidates", "8192", "--device",
+        "cuda"])
+    require(all(math.isfinite(m["mAP"]) for m in results.values()),
+            "evaluate --kind da_jitter: non-finite mAP")
+    return launches
+
+
+def da_step_phase(scans, virtual, cfg, header):
+    """The BR and the CenterRefine train step at the bench configuration
+    (B=8, N=40000, --fps_candidates 8192, Adam at lr 1e-3, BN momentum
+    0.5; epoch 30 for the label refinement) on one fixed pair of batches:
+    wall time (CUDA events, median of 10 after 2 warm-ups), phases,
+    kernels' device time (profiler) and peak memory."""
+    import torch
+
+    from backtoreality_tpu_torch.data.dataset import DetectionDataset
+    from backtoreality_tpu_torch.data.loader import DetectionDataLoader
+    from backtoreality_tpu_torch.losses import votenet as vote_losses
+    from backtoreality_tpu_torch.train import common, votenet
+
+    def first_batch(root, split, center_jitter):
+        ds = DetectionDataset(cfg, root, split=split, num_points=N,
+                              use_height=True, augment=True,
+                              center_jitter=center_jitter)
+        return votenet.to_device(next(iter(DetectionDataLoader(
+            ds, B, shuffle=False, prefetch=0))), "cuda")
+
+    # as `_train_loop_da`: the target is jittered, the source only for
+    # CenterRefine
+    target = first_batch(scans, "all", 0.1)
+    flags = votenet.add_common_flags(argparse.ArgumentParser()).parse_args(
+        ["--fps_candidates", "8192"])
+    epoch = 30
+    out = {}
+    for recipe, kind in (("br", "da"), ("br_center_refine", "da_jitter")):
+        jitter = kind == "da_jitter"
+        batches = [first_batch(virtual, "train_aug", 0.1 if jitter else 0.0),
+                   target]
+        torch.manual_seed(0)
+        model = votenet.build_model(flags, cfg, kind).cuda()
+        opt = common.make_optimizer(model.parameters(), "adam", lr0=1e-3)
+        step = votenet.make_da_train_step(model, opt, cfg, jitter=jitter)
+
+        def run():
+            return step(*batches, 0.5, epoch)
+
+        for _ in range(2):
+            run()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(run, reps=10, warmup=0)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        aux = run()
+        require(math.isfinite(aux["loss"].item()),
+                f"{recipe} step loss not finite")
+        print(f"[da step] VoteNet {recipe} B={B}+{B} N={N}"
+              " fps_candidates=8192, Adam lr 1e-3, BN momentum 0.5:"
+              f" {ms:.3f} ms per step (median of 10 after 2 warm-ups),"
+              f" {2 * B / ms * 1e3:.1f} scenes/s, peak {peak_gb:.2f} GiB,"
+              f" loss {aux['loss'].item():.4f}  | {header}")
+
+        def loss_fn(eps):
+            if jitter:
+                return vote_losses.get_loss_DA_jitter(*eps, epoch, cfg)[0]
+            return vote_losses.get_loss_DA(*eps, cfg)[0]
+
+        phases = step_phases(model, opt, loss_fn, batches, 0.5, jitter)
+        print("  phases (median of 5, CUDA events): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in phases.items()))
+        dev_ms = profile_steps(run, f"{recipe} steps")
+        print(f"  device busy {dev_ms / ms:.3f} of the unprofiled step"
+              f" ({dev_ms:.3f} of {ms:.3f} ms)")
+        out[recipe] = dict(ms=ms, device_ms=dev_ms, peak_gb=peak_gb,
+                           phases=phases)
+        del model, opt, step
+    return out
+
+
+def gate_phase(tmp, counters):
+    """Score the JAX package's trained checkpoint on the card: regenerate
+    the 100-scan shapefix val with the port's own modules (as
+    ``tools/parity_fixture.py --kind shapefix --val_scans 100 --val_seed
+    33`` does), read the msgpack checkpoint with the port's reader, and
+    run ``evaluate.main`` over 3 subsample seeds at N=20000 with subset
+    FPS over 8192 candidates. Fails unless each IoU's 3-seed mean mAP
+    lies within the JAX package's spread of its mean."""
+    from backtoreality_tpu_torch.datagen.shapefix import write_shapefix_val
+    from backtoreality_tpu_torch.train import evaluate
+
+    val = pathlib.Path(tmp) / "shapefix_bigval"
+    t0 = time.perf_counter()
+    write_shapefix_val(val, num_scans=100, seed=33)
+    print(f"[checkpoint gate] shapefix val of 100 scans regenerated in"
+          f" {time.perf_counter() - t0:.1f} s")
+    reset(counters)
+    t0 = time.perf_counter()
+    results = evaluate.main([
+        "--model", "votenet", "--checkpoint_path",
+        str(ROOT / GATE_CHECKPOINT), "--data_root", str(val), "--split",
+        "all", "--num_point", "20000", "--num_target", "256",
+        "--batch_size", "8", "--eval_seeds", "3", "--fps_candidates", "8192",
+        "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    check_counts("checkpoint gate", read_counts(counters), "plain",
+                 3 * math.ceil(100 / 8), 0)
+    print(f"[checkpoint gate] subset FPS 8192: evaluate.main, 3 seeds over"
+          f" 100 scans, in {secs:.1f} s")
+    failed = []
+    for t, (mean, spread, seeds) in GATE.items():
+        got = results[("", t)]
+        card = [r["mAP"] for r in got["seeds"]]
+        within = abs(got["mAP"] - mean) <= spread
+        jax_seeds = " / ".join(f"{v:.4f}" for v in seeds)
+        print(f"  mAP@{t}: card {got['mAP']:.4f} (seeds "
+              + " / ".join(f"{v:.4f}" for v in card)
+              + f"), JAX package {mean:.4f} +/- {spread} (seeds"
+              f" {jax_seeds}): {'within' if within else 'OUTSIDE'} the"
+              " spread")
+        if not within:
+            failed.append(f"mAP@{t} {got['mAP']:.4f} not within"
+                          f" {spread} of {mean}")
+    require(not failed, "checkpoint gate: " + "; ".join(failed))
 
 
 def main() -> int:
@@ -891,9 +1145,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    tmp = tempfile.TemporaryDirectory()
 
     # fixture and seeded checkpoint
-    tmp = tempfile.TemporaryDirectory()
     scans = pathlib.Path(tmp.name) / "scans"
     cfg = get_config("scannet_md40")
     # ~44k points a scan, so the 40k-point draw needs no repeats
@@ -919,8 +1173,7 @@ def main() -> int:
 
     # 2. kernels against their plain versions at the main paths' inputs;
     # SA1 FPS runs over the full cloud when serving and over the first
-    # 8192 candidates when training, every other call on both paths
-    both = ("serving", "training")
+    # 8192 candidates when training, every other call on every path
     print("[kernels] kernel vs plain on the card (median of CUDA events)")
     xyz = pc[..., 0:3]
     fps_records = []
@@ -930,11 +1183,11 @@ def main() -> int:
             ("vote_agg", ep["vote_xyz"], 256)):
         rec = check_fps(label, x, npoint, fps, reps=5, others=True,
                         want_cluster=True if label == "sa1" else None)
-        rec["paths"] = ("serving",) if label == "sa1" else both
+        rec["paths"] = SERVING if label == "sa1" else ALL_PATHS
         fps_records.append(rec)
     rec = check_fps("candidates8192", xyz, 2048, fps, reps=5,
                     candidates=8192, others=True, want_cluster=True)
-    rec["paths"] = ("training",)
+    rec["paths"] = TRAINING
     fps_records.append(rec)
     for label, x, npoint, want_cluster in fps_edge_clouds(xyz, device):
         fps_records.append(check_fps(label, x, npoint, fps, reps=1,
@@ -951,19 +1204,27 @@ def main() -> int:
         ("sa4", ep["sa3_xyz"], ep["sa3_features"], ep["sa4_xyz"], 1.2, 16),
         ("vote_agg", ep["vote_xyz"], ep["vote_features"],
          ep["aggregated_vote_xyz"], 0.3, 16))
+    # the jitter head's layer (CenterRefine only): the GT centres, padded
+    # rows at the origin, in the FP2 features at the sa2 positions; r=0.8
+    # for the query, no radius normalization (the fused entry at 1.0)
+    centres = torch.from_numpy(batch["center_label"]).to(device)
+    ctjt = ("ctjt", ep["sa2_xyz"], ep["fp2_features"], centres, 0.8, 16)
     bq_records = []
     for label, x, _, c, r, s in sa_calls:
         rec = check_bq(label, x, c, r, s, bq, reps=5)
-        rec["paths"] = both
+        rec["paths"] = ALL_PATHS
         bq_records.append(rec)
+    rec = check_bq(*ctjt[:2], *ctjt[3:], bq, reps=5)
+    rec["paths"] = JITTER_PATH
+    bq_records.append(rec)
     check_bq_edges(bq, device)
     group_fwd, group_bwd, local_fwd, local_bwd = [], [], [], []
     for label, x, feats, c, r, s in sa_calls:
         fwd, bwd = check_group(label, torch.cat([x, feats], -1), c, r, s,
                                bq, grouping, reps=10)
-        fwd["paths"] = both
+        fwd["paths"] = ALL_PATHS
         # SA1's input (coordinates and height) needs no gradient
-        bwd["paths"] = () if label == "sa1" else ("training",)
+        bwd["paths"] = () if label == "sa1" else TRAINING
         group_fwd.append(fwd)
         group_bwd.append(bwd)
         # what the training path differentiates: the features past SA1,
@@ -973,11 +1234,17 @@ def main() -> int:
             label, ("features",))
         fwd, bwd = check_localize(label, x, feats, c, r, s, bq, grouping,
                                   reps=10, needs=needs)
-        fwd["paths"] = both
+        fwd["paths"] = ALL_PATHS
         local_fwd.append(fwd)
         if bwd is not None:
-            bwd["paths"] = ("training",)
+            bwd["paths"] = TRAINING
             local_bwd.append(bwd)
+    # the jitter head trains the FP2 features through this layer
+    fwd, bwd = check_localize(*ctjt, bq, grouping, reps=10,
+                              needs=("features",), scale=1.0)
+    fwd["paths"] = bwd["paths"] = JITTER_PATH
+    local_fwd.append(fwd)
+    local_bwd.append(bwd)
     # without features: the coordinates alone
     _, x, _, c, r, s = sa_calls[2]
     check_localize("sa3_xyz_only", x, None, c, r, s, bq, grouping, reps=0)
@@ -998,24 +1265,11 @@ def main() -> int:
     results = evaluate.main(["--model", "votenet", "--checkpoint_path",
                              str(ckpt), "--device", "cuda", *common])
     eval_s = time.perf_counter() - t0
-    serving = {"fps": fps.KERNEL.launches,
-               "ball_query": bq.KERNEL.launches,
-               "group_stratified": grouping.KERNEL.launches,
-               "group_stratified_backward":
-                   grouping.KERNEL.backward_launches,
-               "group_localize_stratified": grouping.LOCALIZE.launches,
-               "group_localize_stratified_backward":
-                   grouping.LOCALIZE.backward_launches}
+    serving = read_counts(counters)
     batches = math.ceil(NUM_SCANS / B)
     print(f"[serving path] evaluate.main over {NUM_SCANS} scans in"
           f" {eval_s:.1f} s; launches {serving} over {batches} batches")
-    for name in ("fps", "ball_query", "group_stratified",
-                 "group_localize_stratified"):
-        require(serving[name] == 5 * batches,
-                f"{name}: {serving[name]} launches, expected 5 per batch")
-    require(serving["group_stratified_backward"] == 0
-            and serving["group_localize_stratified_backward"] == 0,
-            "grouping backward launched while serving")
+    check_counts("serving", serving, "plain", batches, 0)
     for (_, t), metrics in results.items():
         require(math.isfinite(metrics["mAP"]) and
                 math.isfinite(metrics["AR"]), f"non-finite mAP @ {t}")
@@ -1039,40 +1293,56 @@ def main() -> int:
               f" forward")
     del model, out
 
-    # 4. the training path
-    training = train_phase(scans, tmp.name, cfg, counters, header)
+    # 4. the training paths: FSB, then WSB, BR and BR+CenterRefine on a
+    # virtual-scene source fixture (scene_aug names under a path holding
+    # "obj", as the reference's obj_aug: the dataset draws its jitter
+    # table for virtual scans there), the DA steps, and the checkpoint
+    # gate
+    paths = {"serving": serving}
+    paths["training"] = train_phase(scans, tmp.name, cfg, counters, header)
+    virtual = pathlib.Path(tmp.name) / "obj_aug"
+    write_synthetic_scans(virtual, cfg, num_scans=NUM_SCANS, seed=1,
+                          prefix="scene_aug", points_per_object=4500,
+                          floor_points=8000)
+    paths.update(recipe_phase(scans, virtual, tmp.name, counters))
+    da_step_phase(scans, virtual, cfg, header)
+    gate_phase(tmp.name, counters)
     tmp.cleanup()
 
     def by_path(name):
-        return {"serving": serving[name], "training": training[name]}
+        return {path: counts[name] for path, counts in paths.items()}
 
+    # a kernel's times sum one call at each shape on the FSB training
+    # path, as in the earlier slices; the jitter head's shape stands in
+    # per_shape, on the br_center_refine path
+    main_path = "training"
     kernels_line = [
         summarize("fps", fps.KERNEL, "backtoreality_tpu_torch/csrc/fps.cu",
-                  fps_records, by_path("fps"), "training"),
+                  fps_records, by_path("fps"), main_path),
         summarize("ball_query_stratified", bq.KERNEL,
                   "backtoreality_tpu_torch/csrc/ball_query.cu", bq_records,
-                  by_path("ball_query"), "training"),
+                  by_path("ball_query"), main_path),
         summarize("group_stratified", grouping.KERNEL,
                   "backtoreality_tpu_torch/csrc/group_stratified.cu",
-                  group_fwd, by_path("group_stratified"), "training"),
+                  group_fwd, by_path("group_stratified"), main_path),
         summarize("group_stratified_backward", grouping.KERNEL,
                   "backtoreality_tpu_torch/csrc/group_stratified.cu",
                   group_bwd, by_path("group_stratified_backward"),
-                  "training"),
+                  main_path),
         summarize("group_localize_stratified", grouping.LOCALIZE,
                   "backtoreality_tpu_torch/csrc/group_stratified.cu",
                   local_fwd, by_path("group_localize_stratified"),
-                  "training"),
+                  main_path),
         summarize("group_localize_stratified_backward", grouping.LOCALIZE,
                   "backtoreality_tpu_torch/csrc/group_stratified.cu",
                   local_bwd, by_path("group_localize_stratified_backward"),
-                  "training"),
+                  main_path),
     ]
     kernels_line[0]["serial_floor_us"] = {str(k): v
                                           for k, v in floor.items()}
     for k in kernels_line:
-        require(k["launches"] > 0, f"{k['name']}: not launched on the"
-                                   " training path")
+        require(all(k["launches_by_path"][p] > 0 for p in TRAINING),
+                f"{k['name']}: not launched on every training path")
     print(header)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {

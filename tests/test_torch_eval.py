@@ -5,7 +5,8 @@
   any difference is a bug).
 * `evaluate.main` runs end to end on a tiny synthetic fixture with
   ``--device cpu``, and raises without CUDA when no device is given.
-* No file of the port, nor chip_smoke.py, imports JAX or the JAX package.
+* No file of the port, nor chip_smoke.py, imports JAX, the JAX package or
+  msgpack.
 """
 
 import argparse
@@ -135,7 +136,7 @@ def test_evaluate_needs_cuda_unless_cpu_asked(scans, tmp_path, monkeypatch):
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|optax)\b|\bflax\b"
+    r"^\s*(import|from)\s+(jax|flax|optax|msgpack)\b|\bflax\b"
     r"|\bbacktoreality_tpu\.", re.M)
 
 
@@ -143,6 +144,12 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "backtoreality_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    port = ROOT / "backtoreality_tpu_torch"
+    for module in ("bridge.py", "datagen/shapes.py", "datagen/library.py",
+                   "datagen/shapefix.py", "models/votenet/da.py", "train/votenet_wsb.py",
+                   "train/votenet_br.py",
+                   "train/votenet_br_center_refine.py"):
+        assert port / module in files, module
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert hits == []
