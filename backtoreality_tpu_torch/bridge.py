@@ -9,8 +9,18 @@ mechanical:
 
 * a Dense ``kernel`` (in, out) becomes ``nn.Linear.weight`` (out, in);
 * a Dense or BatchNorm ``bias`` stays ``bias``;
-* BatchNorm ``scale``, ``mean`` and ``var`` become ``weight``,
-  ``running_mean`` and ``running_var``.
+* BatchNorm and LayerNorm ``scale`` becomes ``weight``; BatchNorm
+  ``mean`` and ``var`` become ``running_mean`` and ``running_var``;
+* an attention projection (GroupFree3D's decoder) is one
+  ``nn.Linear(288, 288)``: the ``query``, ``key`` and ``value`` kernels
+  (in, heads, head_dim) are reshaped to (in, heads * head_dim) and
+  transposed, their biases (heads, head_dim) flattened; the ``out``
+  kernel (heads, head_dim, out) is reshaped to (heads * head_dim, out)
+  and transposed;
+* a list of submodules, which the JAX package names ``decoder_0``,
+  ``prediction_heads_1``, ..., is an ``nn.ModuleList`` in the port:
+  a name segment ``name_i`` (``i`` a number) becomes ``name.i``. No
+  other module of either model ends its name in ``_`` and a number.
 
 `read_jax_checkpoint` reads the checkpoints the JAX package's
 ``train/common.py::save_checkpoint`` writes (msgpack, gzipped or not)
@@ -26,6 +36,7 @@ import collections
 import collections.abc
 import gzip
 import pathlib
+import re
 import struct
 
 import numpy as np
@@ -33,6 +44,7 @@ import torch
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+_LIST_ITEM = re.compile(r"^(.+)_(\d+)$")
 
 
 def _flatten(tree, prefix=()):
@@ -54,8 +66,14 @@ def state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
                 raise KeyError(f"unmapped {collection} leaf"
                                f" {'/'.join(path)}")
             arr = np.asarray(value)
+            if leaf == "kernel" and arr.ndim == 3:  # attention
+                arr = (arr.reshape(-1, arr.shape[-1]) if module[-1] == "out"
+                       else arr.reshape(arr.shape[0], -1))
             if leaf == "kernel":
                 arr = arr.T
+            elif leaf == "bias" and arr.ndim == 2:  # attention (heads, dim)
+                arr = arr.reshape(-1)
+            module = [_LIST_ITEM.sub(r"\1.\2", m) for m in module]
             name = ".".join([*module, leaves[leaf]])
             out[name] = torch.from_numpy(np.array(arr, order="C"))
     return out

@@ -10,6 +10,15 @@ from __future__ import annotations
 import torch
 
 
+def take_rows(x, index):
+    """take_along_axis on axis 1: x (B, N, ...) by index (B, K)."""
+    index = index.long()
+    if x.dim() > 2:
+        index = index.reshape(index.shape + (1,) * (x.dim() - 2)).expand(
+            -1, -1, *x.shape[2:])
+    return torch.gather(x, 1, index)
+
+
 def masked_mean(x, mask, eps: float = 1e-6):
     """sum(x*mask)/(sum(mask)+eps) — the reference's pervasive reduction."""
     mask = mask.to(torch.float32)

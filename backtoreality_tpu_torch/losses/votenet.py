@@ -27,21 +27,13 @@ import torch
 from backtoreality_tpu_torch.losses.common import (masked_mean, one_hot_f32,
                                                    softmax_ce,
                                                    softmax_focal_loss)
+from backtoreality_tpu_torch.losses.common import take_rows as _take
 from backtoreality_tpu_torch.ops import huber_loss, nn_distance
 
 FAR_THRESHOLD = 0.6
 NEAR_THRESHOLD = 0.3
 GT_VOTE_FACTOR = 3
 OBJECTNESS_CLS_WEIGHTS = (0.2, 0.8)
-
-
-def _take(x, index):
-    """take_along_axis on axis 1: x (B, N, ...) by index (B, K)."""
-    index = index.long()
-    if x.dim() > 2:
-        index = index.reshape(index.shape + (1,) * (x.dim() - 2)).expand(
-            -1, -1, *x.shape[2:])
-    return torch.gather(x, 1, index)
 
 
 def compute_vote_loss(end_points):

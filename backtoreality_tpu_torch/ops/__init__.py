@@ -16,6 +16,7 @@ from backtoreality_tpu_torch.ops.grouping import (
     group_points_stratified)
 from backtoreality_tpu_torch.ops.interpolate import (three_interpolate,
                                                       three_nn)
+from backtoreality_tpu_torch.ops.topk import top_k_indices
 
 __all__ = [
     "furthest_point_sample",
@@ -28,4 +29,5 @@ __all__ = [
     "three_interpolate",
     "nn_distance",
     "huber_loss",
+    "top_k_indices",
 ]

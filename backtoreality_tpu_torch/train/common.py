@@ -1,13 +1,16 @@
-"""Shared training machinery: schedules, optimizer, checkpoints, logging.
+"""Shared training machinery: device, schedules, optimizers, checkpoints,
+logging.
 
 Counterpart of the parts of ``backtoreality_tpu/train/common.py`` that
-the FSB recipe uses: the reference's epoch-step learning rate and BN
-momentum schedules, Adam/AdamW with optax's defaults and an optional
-global-norm clip in optax's formula, atomic checkpoints of the model and
-optimizer, the cross-stage partial restore (BR weights grafted into
-CenterRefine, the JAX package's checkpoints into the port), a metric
-meter and the train logger. Single process; the multi-host rendezvous
-and the preemption guard are not ported.
+the ported recipes use: the reference's epoch-step learning rate and BN
+momentum schedules, GroupFree3D's per-iteration warmup, step and cosine
+schedule, Adam/AdamW with optax's defaults and an optional global-norm
+clip in optax's formula, GroupFree3D's AdamW with a decoder learning rate
+of its own, atomic checkpoints of the model and optimizer, the
+cross-stage partial restore (BR weights grafted into CenterRefine, the
+JAX package's checkpoints into the port), a metric meter and the train
+logger. Single process; the multi-host rendezvous and the preemption
+guard are not ported.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import functools
 import json
 import logging
+import math
 import os
 import pathlib
 import sys
@@ -25,6 +29,27 @@ import torch
 
 from backtoreality_tpu_torch import bridge
 from backtoreality_tpu_torch.nn.norm import bn_momentum_schedule
+
+
+def resolve_device(name: str | None) -> torch.device:
+    """`name`, or cuda when None. Raises when cuda is asked for (or
+    implied) and no card is present: never falls back to the CPU."""
+    device = torch.device("cuda" if name is None else name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass"
+                               " --device cpu to run on the CPU")
+        # the JAX geometry and matmuls run at full f32 precision
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def to_device(batch: dict, device) -> dict:
+    """Host batch (numpy arrays) -> tensors on `device`."""
+    return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
+            for k, v in batch.items()}
+
 
 # ---------------------------------------------------------------------------
 # Schedules
@@ -52,6 +77,41 @@ def bn_momentum_fn(init=0.5, step=20, rate=0.5, floor=0.001):
                              decay_step=step, decay_rate=rate, floor=floor)
 
 
+def make_gf_schedule(base_lr: float, flags, steps_per_epoch: int):
+    """The reference GF scheduler (`utils/lr_scheduler.py:65-87`) as the
+    JAX package's optax schedule of the update count: an optional linear
+    warmup from base / multiplier, then per-iteration MultiStep or cosine
+    decay. Returns f(count) -> lr."""
+    warmup_epochs = max(flags.warmup_epoch, 0)
+    warmup = warmup_epochs * steps_per_epoch
+    if flags.lr_scheduler == "step":
+        bounds = sorted((m - warmup_epochs) * steps_per_epoch
+                        for m in flags.lr_decay_epochs)
+
+        def after(count):
+            return base_lr * flags.lr_decay_rate ** sum(
+                count >= b for b in bounds)
+    else:
+        steps = max((flags.max_epoch - warmup_epochs) * steps_per_epoch, 1)
+        alpha = 1e-6 / base_lr
+
+        def after(count):
+            cosine = 0.5 * (1 + math.cos(math.pi * min(count, steps)
+                                         / steps))
+            return base_lr * ((1 - alpha) * cosine + alpha)
+
+    if warmup <= 0:
+        return after
+    init = base_lr / flags.warmup_multiplier
+
+    def schedule(count):
+        if count < warmup:
+            return init + (base_lr - init) * count / warmup
+        return after(count - warmup)
+
+    return schedule
+
+
 # ---------------------------------------------------------------------------
 # Optimizer
 # ---------------------------------------------------------------------------
@@ -60,15 +120,17 @@ def bn_momentum_fn(init=0.5, step=20, rate=0.5, floor=0.001):
 def clip_by_global_norm(params: tp.Iterable[torch.Tensor],
                         max_norm: float):
     """optax.clip_by_global_norm on the gradients, in place: when the
-    global norm g reaches max_norm, every gradient becomes
-    grad / g * max_norm (no epsilon, unlike clip_grad_norm_)."""
+    global norm g reaches max_norm, every gradient is scaled by
+    max_norm / g (no epsilon, unlike clip_grad_norm_). A few fused
+    launches for all the tensors, whatever their number (GroupFree3D
+    has 416)."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    clip = norm >= max_norm  # stays on the device: no host sync
-    for g in grads:
-        g.copy_(torch.where(clip, g / norm * max_norm, g))
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    # stays on the device: no host sync
+    scale = torch.where(norm >= max_norm, max_norm / norm, 1.0)
+    torch._foreach_mul_(grads, scale)
 
 
 def make_optimizer(params, kind: str = "adam", weight_decay: float = 0.0,
@@ -89,6 +151,41 @@ def make_optimizer(params, kind: str = "adam", weight_decay: float = 0.0,
     if grad_clip is not None:
         opt.register_step_pre_hook(
             lambda *_: clip_by_global_norm(params, grad_clip))
+    return opt
+
+
+def make_gf_optimizer(model: torch.nn.Module, lr_fn, decoder_lr_fn,
+                      weight_decay: float = 5e-4, grad_clip: float = 0.1):
+    """GroupFree3D's optimizer (`train_GF_FSB.py:234-244`; the JAX
+    package's ``make_gf_optimizer``): the gradients clipped to a global
+    norm of `grad_clip` over all parameters, then AdamW with optax's
+    defaults and `weight_decay` on every parameter, in two groups:
+    parameters whose top-level module name starts with ``decoder`` take
+    `decoder_lr_fn`, the rest `lr_fn`. Each schedule maps the group's
+    count of updates to its learning rate, set before every step, as an
+    optax schedule reads its count; the counts (group key ``count``)
+    travel in the optimizer's state_dict."""
+    groups = {"main": [], "decoder": []}
+    for name, p in model.named_parameters():
+        top = name.split(".", 1)[0]
+        groups["decoder" if top.startswith("decoder") else "main"].append(p)
+    schedules = {"main": lr_fn, "decoder": decoder_lr_fn}
+    opt = torch.optim.AdamW(
+        [dict(params=ps, name=n, count=0) for n, ps in groups.items() if ps],
+        lr=lr_fn(0), betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    params = groups["main"] + groups["decoder"]
+
+    def before(*_):
+        clip_by_global_norm(params, grad_clip)
+        for group in opt.param_groups:
+            group["lr"] = schedules[group["name"]](group["count"])
+
+    def after(*_):
+        for group in opt.param_groups:
+            group["count"] += 1
+
+    opt.register_step_pre_hook(before)
+    opt.register_step_post_hook(after)
     return opt
 
 
@@ -163,6 +260,24 @@ def partial_restore(model: torch.nn.Module, source: dict, log=None) -> int:
     return fresh
 
 
+def restore_weights(model: torch.nn.Module, path, what: str,
+                    log=None) -> int | None:
+    """Every entry of `model`'s state_dict from the checkpoint at `path`
+    (any kind :func:`load_weights` reads); returns the checkpoint's epoch.
+    A checkpoint that would leave an entry at its fresh init is refused
+    (exit with a message naming `what`, the graph asked for): its model
+    was another graph, and its weights would be trained or scored as if
+    they were this one's."""
+    state, epoch = load_weights(path)
+    if partial_restore(model, state, log=log):
+        raise SystemExit(f"{path} does not cover the {what} model: it was"
+                         " trained with another graph")
+    if log:
+        log(f"loaded checkpoint {path}"
+            + ("" if epoch is None else f" from epoch {epoch}"))
+    return epoch
+
+
 # ---------------------------------------------------------------------------
 # Logging / metrics
 # ---------------------------------------------------------------------------
@@ -185,6 +300,12 @@ def setup_logger(log_dir, name="btr"):
         logger.addHandler(fh)
     logger.propagate = False
     return logger
+
+
+def scalars(aux: dict) -> dict:
+    """The 0-d entries of a criterion's aux dict, detached (they stay on
+    the device)."""
+    return {k: v.detach() for k, v in aux.items() if v.dim() == 0}
 
 
 def fetch_aux_means(aux_hist) -> dict[str, float]:

@@ -1,23 +1,29 @@
 """Standalone evaluation entry point (the serving path).
 
-Counterpart of ``backtoreality_tpu/train/evaluate.py`` for
-``--model votenet``: load a checkpoint, run the detector forward over a
-split, decode and NMS the boxes, print per-class AP/AR at the requested
-IoU thresholds, over ``--eval_seeds`` point-subsample seeds. It runs on
-the CUDA card unless ``--device cpu`` is given, and raises if no card is
-present and the CPU was not asked for.
+Counterpart of ``backtoreality_tpu/train/evaluate.py``: load a
+checkpoint, run the detector forward over a split, decode and NMS the
+boxes, print per-class AP/AR at the requested IoU thresholds, over
+``--eval_seeds`` point-subsample seeds. ``--model votenet`` takes the
+VoteNet flags and ``--kind``; ``--model groupfree`` takes GroupFree3D's
+(``train/groupfree.py``), scores the last decoder layer's head (``last_``,
+or ``proposal_`` without a decoder) at ``--ap_iou_thresholds`` with a
+confidence threshold of 0.0. It runs on the CUDA card unless ``--device
+cpu`` is given, and raises if no card is present and the CPU was not
+asked for.
 
 Checkpoints are the JAX package's msgpack checkpoints (gzipped or not),
 ``torch.save`` files of the port's ``state_dict``, or the training
 checkpoints of ``train/votenet.py``; ``common.load_weights`` tells them
-apart. A checkpoint must cover every entry of the ``--kind`` graph:
+apart. A checkpoint must cover every entry of the graph asked for:
 one trained with another graph is refused rather than scored with
-fresh weights. Not ported yet: BN recalibration, GroupFree3D and
-``--bf16``.
+fresh weights. Not ported yet: BN recalibration, the GroupFree3D DA
+graphs and ``--bf16``.
 
 Usage:
   python -m backtoreality_tpu_torch.train.evaluate --model votenet \
       --checkpoint_path log/checkpoint.pt --data_root data [...]
+  python -m backtoreality_tpu_torch.train.evaluate --model groupfree \
+      --checkpoint_path log_gf/ckpt_epoch_last.tar --data_root data [...]
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from backtoreality_tpu_torch.eval import (
 )
 from backtoreality_tpu_torch.models.votenet import (VoteNet, VoteNetDA,
                                                     VoteNetDAJitter)
-from backtoreality_tpu_torch.train import common
+from backtoreality_tpu_torch.train import common, groupfree
+from backtoreality_tpu_torch.train.common import resolve_device
 
 # model-output keys needed by host-side eval
 EVAL_KEYS = (
@@ -112,20 +119,6 @@ def model_args(batch, jitter: bool) -> tuple:
     return (batch["point_clouds"],)
 
 
-def resolve_device(name: str | None) -> torch.device:
-    """`name`, or cuda when None. Raises when cuda is asked for (or
-    implied) and no card is present: never falls back to the CPU."""
-    device = torch.device("cuda" if name is None else name)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass"
-                               " --device cpu to run on the CPU")
-        # the JAX geometry and matmuls run at full f32 precision
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return device
-
-
 def _print_metrics(name, t, runs):
     """The JAX package's print: one seed's metrics, or each key's mean
     +/- sigma (with the seeds' values for mAP and AR)."""
@@ -147,9 +140,12 @@ def _print_metrics(name, t, runs):
 
 def main(argv=None):
     """Returns {(prefix, iou_threshold): metrics}: each key's mean over
-    the seeds, and under "seeds" every seed's metrics dict."""
+    the seeds, and under "seeds" every seed's metrics dict. The prefix is
+    "" for VoteNet, the scored head's (``last_`` or ``proposal_``) for
+    GroupFree3D."""
     parser = argparse.ArgumentParser()
-    parser.add_argument("--model", choices=["votenet"], default="votenet")
+    parser.add_argument("--model", choices=["votenet", "groupfree"],
+                        default="votenet")
     parser.add_argument("--eval_seeds", type=int, default=1,
                         help="repeat the eval under N different"
                              " point-subsample seeds and report"
@@ -160,63 +156,74 @@ def main(argv=None):
         argv = sys.argv[1:]
     pre, rest = parser.parse_known_args(argv)
 
-    sub = add_common_flags(argparse.ArgumentParser())
+    sub = argparse.ArgumentParser()
+    if pre.model == "votenet":
+        add_common_flags(sub)
+        sub.add_argument("--kind", default="plain", choices=sorted(MODELS),
+                         help="model graph the checkpoint was trained with"
+                              " (BR -> da, CenterRefine -> da_jitter)")
+    else:
+        groupfree.add_flags(sub)
     sub.add_argument("--split", default="val")
-    sub.add_argument("--kind", default="plain", choices=sorted(MODELS),
-                     help="model graph the checkpoint was trained with"
-                          " (BR -> da, CenterRefine -> da_jitter)")
     flags = sub.parse_args(rest)
     if not flags.checkpoint_path:
         raise SystemExit("--checkpoint_path is required")
     device = resolve_device(flags.device)
     cfg = get_config(flags.dataset)
-
-    model = build_model(flags, cfg, flags.kind)
-    state, epoch = common.load_weights(flags.checkpoint_path)
-    if common.partial_restore(model, state, log=print):
-        # a leaf left at its fresh init would be scored as if trained
-        raise SystemExit(
-            f"{flags.checkpoint_path} does not cover the --kind"
-            f" {flags.kind} model: it was trained with another graph")
-    print(f"loaded checkpoint {flags.checkpoint_path}"
-          + ("" if epoch is None else f" from epoch {epoch}"))
+    if pre.model == "votenet":
+        model = build_model(flags, cfg, flags.kind)
+        graph, jitter = f"--kind {flags.kind}", flags.kind == "da_jitter"
+        use_height = not flags.no_height
+        thresholds, prefixes = [flags.ap_iou_thresh, 0.5], ("",)
+        conf_thresh = EVAL_CONFIG_DICT["conf_thresh"]
+    else:
+        model = groupfree.build_model(flags, cfg)
+        graph, jitter = "--model groupfree", False
+        use_height = flags.use_height
+        thresholds = flags.ap_iou_thresholds
+        prefixes = groupfree.eval_prefixes(flags)
+        conf_thresh = groupfree.GF_EVAL_CONFIG_DICT["conf_thresh"]
+    # a leaf left at its fresh init would be scored as if trained
+    common.restore_weights(model, flags.checkpoint_path, graph, log=print)
     model.to(device).eval()
 
     ds = DetectionDataset(
         cfg, flags.data_root, split=flags.split, num_points=flags.num_point,
-        use_color=flags.use_color, use_height=not flags.no_height,
-        augment=False)
+        use_color=flags.use_color, use_height=use_height, augment=False,
+        gf_labels=pre.model == "groupfree")
     loader = DetectionDataLoader(ds, flags.batch_size, shuffle=False,
                                  drop_last=False)
     print(f"eval scans: {len(ds)}")
 
-    jitter = flags.kind == "da_jitter"
-    thresholds = [flags.ap_iou_thresh, 0.5]
-    config_dict = dict(EVAL_CONFIG_DICT, dataset_config=cfg)
-    history = {t: [] for t in thresholds}
+    keys = [p + k for p in prefixes for k in EVAL_KEYS]
+    config_dict = dict(EVAL_CONFIG_DICT, conf_thresh=conf_thresh,
+                       dataset_config=cfg)
+    history = {(p, t): [] for p in prefixes for t in thresholds}
     base_seed = ds.seed
     for si in range(max(1, pre.eval_seeds)):
         # a different dataset seed redraws every scan's point subsample
         # (and nothing else: augment=False)
         ds.seed = base_seed + si
-        calcs = {t: APCalculator(t, cfg.class2type) for t in thresholds}
+        calcs = {key: APCalculator(key[1], cfg.class2type)
+                 for key in history}
         with torch.inference_mode():
             for batch in loader:
                 end_points = model(*(torch.from_numpy(a).to(device)
                                      for a in model_args(batch, jitter)))
-                outs = {k: end_points[k].cpu().numpy() for k in EVAL_KEYS}
-                preds = parse_predictions(outs, config_dict)
+                outs = {k: end_points[k].cpu().numpy() for k in keys}
                 gts = parse_groundtruths(batch, config_dict)
-                for calc in calcs.values():
-                    calc.step(preds, gts)
-        for t, calc in calcs.items():
-            history[t].append(calc.compute_metrics())
+                for prefix in prefixes:
+                    preds = parse_predictions(outs, config_dict, prefix)
+                    for t in thresholds:
+                        calcs[(prefix, t)].step(preds, gts)
+        for key, calc in calcs.items():
+            history[key].append(calc.compute_metrics())
 
     results = {}
-    for t, runs in history.items():
-        _print_metrics("votenet", t, runs)
+    for (prefix, t), runs in history.items():
+        _print_metrics(prefix or "votenet", t, runs)
         mean = {k: float(np.mean([r[k] for r in runs])) for k in runs[0]}
-        results[("", t)] = dict(mean, seeds=runs)
+        results[(prefix, t)] = dict(mean, seeds=runs)
     return results
 
 

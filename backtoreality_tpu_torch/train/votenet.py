@@ -33,7 +33,6 @@ import os
 import pathlib
 import time
 
-import numpy as np
 import torch
 
 from backtoreality_tpu_torch.data import get_config
@@ -44,10 +43,10 @@ from backtoreality_tpu_torch.eval import (APCalculator, parse_groundtruths,
 from backtoreality_tpu_torch.losses import votenet as vote_losses
 from backtoreality_tpu_torch.nn import set_bn_momentum
 from backtoreality_tpu_torch.train import common
+from backtoreality_tpu_torch.train.common import to_device
 from backtoreality_tpu_torch.train.evaluate import (EVAL_CONFIG_DICT,
                                                     EVAL_KEYS, build_model,
-                                                    model_args,
-                                                    resolve_device)
+                                                    model_args)
 from backtoreality_tpu_torch.train.observability import ScalarHistory
 
 __all__ = ["add_common_flags", "build_model", "make_train_step",
@@ -96,16 +95,6 @@ def add_common_flags(parser: argparse.ArgumentParser):
     return parser
 
 
-def to_device(batch: dict, device) -> dict:
-    """Host batch (numpy arrays) -> tensors on `device`."""
-    return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
-            for k, v in batch.items()}
-
-
-def _scalars(aux):
-    return {k: v.detach() for k, v in aux.items() if v.dim() == 0}
-
-
 def _update(model, optimizer, loss):
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -125,7 +114,7 @@ def make_train_step(model, optimizer, criterion, cfg, *, jitter=False):
         end_points = model(*model_args(batch, jitter))
         loss, aux = criterion({**batch, **end_points}, cfg)
         _update(model, optimizer, loss)
-        return _scalars(aux)
+        return common.scalars(aux)
 
     return step
 
@@ -150,7 +139,7 @@ def make_da_train_step(model, optimizer, cfg, *, jitter=False):
         else:
             loss, aux = vote_losses.get_loss_DA(ep_S, ep_T, cfg)
         _update(model, optimizer, loss)
-        return _scalars(aux)
+        return common.scalars(aux)
 
     return step
 
@@ -163,7 +152,7 @@ def make_eval_step(model, criterion, cfg, *, jitter=False):
         with torch.no_grad():
             outs = model(*model_args(batch, jitter))
             _, aux = criterion({**batch, **outs}, cfg)
-        return {k: outs[k] for k in EVAL_KEYS}, _scalars(aux)
+        return {k: outs[k] for k in EVAL_KEYS}, common.scalars(aux)
 
     return step
 
@@ -209,7 +198,7 @@ def _schedules(flags):
 
 def _setup(flags, kind):
     """Device, config, logger, model (seeded) and its Adam."""
-    device = resolve_device(flags.device)
+    device = common.resolve_device(flags.device)
     cfg = get_config(flags.dataset)
     logger = common.setup_logger(flags.log_dir)
     common.dump_config(flags.log_dir, vars(flags))
@@ -258,10 +247,10 @@ def _train_loop_single(flags, recipe):
         start_epoch = _resume(model, optimizer, flags.checkpoint_path,
                               logger)
     elif flags.checkpoint_path:
-        ckpt = common.load_checkpoint(flags.checkpoint_path)
-        model.load_state_dict(ckpt.get("model", ckpt))
-        logger.info("restored weights from %s (epoch %d)",
-                    flags.checkpoint_path, ckpt.get("epoch", -1))
+        # the JAX package's checkpoints too: the weights only, as its
+        # `restore_state(..., restore_opt=False)`
+        common.restore_weights(model, flags.checkpoint_path, "VoteNet",
+                               logger.info)
     history = ScalarHistory(flags.log_dir)
 
     train_step = make_train_step(model, optimizer, criterion, cfg)

@@ -26,9 +26,13 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    plain backward in float64 and bitwise equal over two runs, its three
    passes timed apart; the grouping fused with the localize step the same
    way (forward bit-exact with and without features; gradients of xyz,
-   features and centres). Kernel, plain and library times are medians of
-   CUDA events, with the host's launches queued ahead of the device so
-   that they time device work.
+   features and centres). Then the same at GroupFree3D's new shape, SA1
+   on N=50000 rows (B=8, FPS over the full cloud, its CLI defaults), with
+   the centres its forward draws: FPS in every layout, the ball query in
+   every tile, the grouping unfused and fused for C = 3 and 3 + 1.
+   Kernel, plain and library times are medians of CUDA events, with the
+   host's launches queued ahead of the device so that they time device
+   work.
 3. Serving path: reset the launch counters, run the evaluation entry
    point (``backtoreality_tpu_torch.train.evaluate.main``) over 16
    synthetic scans at B=8, N=40000 on ``cuda``, check that FPS, ball
@@ -58,10 +62,25 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    reader and scored by ``evaluate.main`` over 3 subsample seeds on the
    100-scan shapefix val; fails unless each IoU's mean mAP lies within
    the JAX package's spread of its mean.
-7. Print the card's name and power limit, one JSON line with every
-   kernel's numbers (times summed over the FSB training path's shapes),
-   and as the last line ``{"ok": true, "device": {"platform": "gpu",
-   ...}}``.
+7. GroupFree3D at its CLI defaults (B=8, N=50000, 6 decoder layers, 256
+   queries, no height feature) on 16 synthetic scans of 52000 points:
+   ``evaluate --model groupfree`` with random seeded weights (launches 4
+   FPS, 4 ball queries, 4 fused groupings a batch; finite mAP; the
+   forward's time, peak memory and device time by kernel); ``gf_fsb`` and
+   ``gf_wsb`` for one epoch (2 steps) and one evaluation each (3 grouping
+   backwards a step), the FSB checkpoint scored by ``evaluate --model
+   groupfree``; the GF FSB train step on a fixed batch (wall, phases,
+   kernels' device time, peak memory; bitwise repeatability printed).
+   Then the learning check: ``gf_fsb`` on the shapefix train split at the
+   JAX package's shapefix configuration (N=20000, height, subset FPS over
+   8192) for 50 epochs of 5 steps, each epoch's loss beside the JAX run's
+   (``evidence/round5/gflad/f32_metrics.jsonl``); fails unless the mean
+   loss over epochs 40-49 lies within 0.67-1.5 times the JAX run's and
+   mAP@0.25 at epoch 49 reaches 0.30.
+8. Print the card's name and power limit, one JSON line with every
+   kernel's numbers (times summed over the VoteNet FSB training path's
+   shapes; launches by path, the GF paths included), and as the last line
+   ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It exits nonzero without a CUDA device, and imports nothing of JAX.
 ``--kernels_only`` stops after phase 2 and prints its records as one JSON
@@ -98,27 +117,45 @@ GROUP_GRAD_RTOL = 1e-5
 # a sleep kernel of this many clock cycles (a few ms) keeps the device busy
 # while the host queues the calls that a kernel timing measures
 AHEAD_CYCLES = 10_000_000
-# the paths the launch counters are read on; the training recipes all
-# train with --fps_candidates 8192, and only CenterRefine has the jitter
-# head's layer
+# the paths the launch counters are read on; the VoteNet training recipes
+# all train with --fps_candidates 8192, and only CenterRefine has the
+# jitter head's layer; the GroupFree3D paths run at their CLI defaults
+# (N=50000, FPS over the full cloud, no height feature)
 SERVING = ("serving",)
 TRAINING = ("training", "wsb", "br", "br_center_refine")
 ALL_PATHS = SERVING + TRAINING
 JITTER_PATH = ("br_center_refine",)
+GF_TRAINING = ("gf_fsb", "gf_wsb")
+GF_PATHS = ("gf_serving",) + GF_TRAINING
+N_GF = 50000
 # launches per forward (FPS, ball query, the fused grouping) and grouping
 # backwards per train step, by model graph. A DA step runs two forwards
 # and one backward: SA2-SA4 and vote clustering in each, and in
 # CenterRefine the jitter head's layer in each forward and its backward in
 # the source's only (the target's jitter prediction refines labels that
-# are detached)
-PER_FORWARD = {"plain": (5, 5, 5), "da": (5, 5, 5), "da_jitter": (5, 6, 6)}
-BACKWARDS_PER_STEP = {"plain": 4, "da": 8, "da_jitter": 9}
+# are detached). GroupFree3D samples its queries by KPS (a top-k, no
+# kernel): SA1-SA4 a forward, SA2-SA4 a backward
+PER_FORWARD = {"plain": (5, 5, 5), "da": (5, 5, 5), "da_jitter": (5, 6, 6),
+               "gf": (4, 4, 4)}
+BACKWARDS_PER_STEP = {"plain": 4, "da": 8, "da_jitter": 9, "gf": 3}
 # the checkpoint gate: the JAX package's scores of lad_f32 on the 100-scan
 # shapefix val (subset FPS over 8192 candidates, 3 subsample seeds;
 # evidence/round5/r5_ladeval_f32.out), mean and its own spread per IoU
 GATE_CHECKPOINT = "evidence/round4/ckpt/lad_f32.tar.gz"
 GATE = {0.25: (0.8210, 0.0064, (0.8234, 0.8138, 0.8258)),
         0.5: (0.6202, 0.0226, (0.6439, 0.5990, 0.6178))}
+# the GroupFree3D learning check: the JAX package's run of GF FSB on the
+# shapefix train split (evidence/round5/gflad/f32_config.json), its
+# per-epoch losses and the in-loop mAP@0.25 at epoch 49 in f32_metrics.jsonl,
+# its mAP@0.5 there in RESULTS.md:1256; the port's mean loss over epochs
+# 40-49 must lie within LEARN_BAND of the JAX run's, its mAP@0.25 at epoch
+# 49 at least LEARN_MIN_MAP (the 12-scan noise is +/-0.01-0.07,
+# RESULTS.md:1266)
+LEARN_METRICS = "evidence/round5/gflad/f32_metrics.jsonl"
+LEARN_EPOCHS = 50
+LEARN_BAND = (0.67, 1.5)
+LEARN_MIN_MAP = 0.30
+LEARN_JAX_MAP50 = 0.163
 
 
 def require(cond, what: str):
@@ -909,7 +946,9 @@ def train_phase(scans, tmp, cfg, counters, header):
     after = []
     for _ in range(2):
         model.load_state_dict(state)
-        opt.load_state_dict(opt_state)
+        # a copy: the optimizer keeps the tensors it is given and steps
+        # them in place
+        opt.load_state_dict(copy.deepcopy(opt_state))
         step(batch, 0.5)
         after.append([p.detach().clone() for p in model.parameters()])
     differ = sum(not torch.equal(a, b) for a, b in zip(*after))
@@ -1103,6 +1142,294 @@ def gate_phase(tmp, counters):
     require(not failed, "checkpoint gate: " + "; ".join(failed))
 
 
+def gf_flags():
+    """GroupFree3D's flags at their CLI defaults."""
+    from backtoreality_tpu_torch.train import groupfree
+
+    return groupfree.add_flags(argparse.ArgumentParser()).parse_args([])
+
+
+def gf_first_batch(scans, cfg, use_height, augment=False):
+    """The first B scans of the GroupFree3D fixture at N_GF points, with
+    GF's labels, as tensors on the card."""
+    from backtoreality_tpu_torch.data.dataset import DetectionDataset
+    from backtoreality_tpu_torch.data.loader import DetectionDataLoader
+    from backtoreality_tpu_torch.train.common import to_device
+
+    ds = DetectionDataset(cfg, scans, split="all", num_points=N_GF,
+                          use_height=use_height, augment=augment,
+                          gf_labels=True)
+    return to_device(next(iter(DetectionDataLoader(
+        ds, B, shuffle=False, prefetch=0))), "cuda")
+
+
+def gf_kernel_phase(scans, cfg, fps, bq, grouping):
+    """The kernels at GroupFree3D's new shape, SA1 on N=50000 rows (its CLI
+    default), with the inputs its forward gives them: FPS bit-exact in
+    every layout; the ball query in every tile; the grouping, unfused and
+    fused with the localize step, bit-exact forward and gradients within
+    the tolerance, for C = 3 (the CLI default) and C = 3 + 1 (with
+    ``--use_height``). SA2-SA4 run at VoteNet's shapes. Returns the
+    records (FPS, ball query, grouping forward, fused forward)."""
+    import torch
+
+    from backtoreality_tpu_torch.train import groupfree
+
+    torch.manual_seed(0)
+    model = groupfree.build_model(gf_flags(), cfg).cuda().eval()
+    pc = gf_first_batch(scans, cfg, use_height=True)["point_clouds"]
+    xyz, height = pc[..., 0:3], pc[..., 3:]
+    with torch.inference_mode():
+        ctr = model(xyz)["sa1_xyz"]  # the CLI default: no height feature
+    torch.cuda.synchronize()
+    del model
+    print(f"[kernels: GroupFree3D SA1] B={B} N={N_GF}, centres from the GF"
+          " forward")
+    fps_rec = check_fps("gf_sa1", xyz, 2048, fps, reps=3, others=True,
+                        want_cluster=True)
+    bq_rec = check_bq("gf_sa1", xyz, ctr, 0.2, 64, bq, reps=5)
+    fps_rec["paths"] = bq_rec["paths"] = GF_PATHS
+    group_recs, local_recs = [], []
+    for label, feats in (("gf_sa1", None), ("gf_sa1_height", height)):
+        on_paths = GF_PATHS if feats is None else ()
+        points = xyz if feats is None else pc
+        fwd, bwd = check_group(label, points.contiguous(), ctr, 0.2, 64, bq,
+                               grouping, reps=10)
+        fwd["paths"], bwd["paths"] = on_paths, ()
+        group_recs.append(fwd)
+        # SA1's input needs no gradient on the paths: the gradients are
+        # checked, not timed
+        fwd, _ = check_localize(label, xyz, feats, ctr, 0.2, 64, bq,
+                                grouping, reps=10)
+        fwd["paths"] = on_paths
+        local_recs.append(fwd)
+    return fps_rec, bq_rec, group_recs, local_recs
+
+
+def gf_serving_phase(scans, tmp, cfg, counters, header):
+    """``evaluate --model groupfree`` over the GF fixture at the CLI
+    defaults (B=8, N=50000, 6 decoder layers, 256 queries) with random
+    seeded weights the port saved; the launch counts, finite mAP; then
+    the forward's time per batch, scenes/s, peak memory, device time by
+    kernel and busy share. Returns the launches."""
+    import torch
+
+    from backtoreality_tpu_torch.train import evaluate, groupfree
+
+    torch.manual_seed(0)
+    model = groupfree.build_model(gf_flags(), cfg)
+    ckpt = pathlib.Path(tmp) / "groupfree.pt"
+    torch.save(model.state_dict(), ckpt)
+    reset(counters)
+    t0 = time.perf_counter()
+    results = evaluate.main([
+        "--model", "groupfree", "--checkpoint_path", str(ckpt),
+        "--data_root", str(scans), "--split", "all", "--batch_size", str(B),
+        "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    launches = read_counts(counters)
+    batches = math.ceil(NUM_SCANS / B)
+    print(f"[serving path: GroupFree3D] evaluate.main --model groupfree over"
+          f" {NUM_SCANS} scans in {secs:.1f} s; launches {launches} over"
+          f" {batches} batches")
+    check_counts("gf_serving", launches, "gf", batches, 0)
+    for (prefix, t), metrics in results.items():
+        require(math.isfinite(metrics["mAP"]) and math.isfinite(
+            metrics["AR"]), f"GF serving: non-finite mAP @ {t}")
+        print(f"  [{prefix}] mAP@{t} {metrics['mAP']:.4f}  AR@{t}"
+              f" {metrics['AR']:.4f}")
+
+    model.cuda().eval()
+    pc = gf_first_batch(scans, cfg, use_height=False)["point_clouds"]
+    with torch.inference_mode():
+        out = model(pc)
+        require(out["last_center"].shape == (B, 256, 3)
+                and bool(torch.isfinite(out["last_center"]).all()),
+                "GF forward output not finite or of the wrong shape")
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = cuda_ms(lambda: model(pc), reps=10, warmup=2)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[forward] GroupFree3D B={B} N={N_GF}: {fwd_ms:.3f} ms per"
+              f" batch (median of 10), {B / fwd_ms * 1e3:.1f} scenes/s, peak"
+              f" {peak_gb:.2f} GiB  | {header}")
+        dev_ms = profile_steps(lambda: model(pc), "GF forwards")
+        print(f"  device busy {dev_ms / fwd_ms:.3f} of the unprofiled"
+              f" forward ({dev_ms:.3f} of {fwd_ms:.3f} ms)")
+    return launches
+
+
+def gf_train_phase(scans, tmp, cfg, counters, header):
+    """``gf_fsb.main`` and ``gf_wsb.main`` at the CLI defaults, one epoch
+    (2 steps) and one evaluation each, the launch counts checked per
+    recipe, the FSB checkpoint scored by ``evaluate --model groupfree``;
+    then the GF FSB train step on a fixed batch (B=8, N=50000): wall,
+    phases, kernels' device time, peak memory, busy share, and (printed,
+    not gated) whether two steps from one state are bitwise equal.
+    Returns the launches by recipe."""
+    import copy
+
+    import torch
+
+    from backtoreality_tpu_torch.losses import groupfree as gf_losses
+    from backtoreality_tpu_torch.train import (common, evaluate, gf_fsb,
+                                               gf_wsb, groupfree)
+
+    tmp = pathlib.Path(tmp)
+    steps = NUM_SCANS // B
+    launches = {}
+    for recipe, entry in (("gf_fsb", gf_fsb), ("gf_wsb", gf_wsb)):
+        log = tmp / f"{recipe}_log"
+        reset(counters)
+        t0 = time.perf_counter()
+        entry.main(["--data_root", str(scans), "--train_split", "all",
+                    "--val_split", "all", "--log_dir", str(log), "--device",
+                    "cuda", "--batch_size", str(B), "--max_epoch", "1",
+                    "--val_freq", "1"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[recipe] = read_counts(counters)
+        print(f"[training path: {recipe}] {recipe}.main: {steps} steps + one"
+              f" evaluation in {secs:.1f} s; launches {launches[recipe]}")
+        check_counts(recipe, launches[recipe], "gf",
+                     steps + math.ceil(NUM_SCANS / B), steps)
+        rows = [json.loads(line) for line in
+                (log / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in rows if "loss" in r]
+        maps = [r["mAP"] for r in rows if "mAP" in r]
+        require(len(losses) == 1 and len(maps) == 1
+                and all(map(math.isfinite, losses + maps)),
+                f"{recipe}: loss {losses}, mAP {maps}")
+        print(f"  epoch loss {losses[0]:.4f}, eval mAP@0.25 {maps[0]:.4f}")
+    results = evaluate.main([
+        "--model", "groupfree", "--checkpoint_path",
+        str(tmp / "gf_fsb_log/ckpt_epoch_last.tar"), "--data_root",
+        str(scans), "--split", "all", "--batch_size", str(B), "--device",
+        "cuda"])
+    require(all(math.isfinite(m["mAP"]) for m in results.values()),
+            "evaluate --model groupfree on the trained checkpoint:"
+            " non-finite mAP")
+
+    flags = gf_flags()
+    torch.manual_seed(0)
+    model = groupfree.build_model(flags, cfg).cuda()
+    opt = common.make_gf_optimizer(
+        model, common.make_gf_schedule(flags.learning_rate, flags, steps),
+        common.make_gf_schedule(flags.decoder_learning_rate, flags, steps),
+        flags.weight_decay, flags.clip_norm)
+    loss_kw = groupfree.loss_kwargs(flags)
+    step = groupfree.make_train_step(model, opt, gf_losses.get_loss, cfg,
+                                     loss_kw)
+    batch = gf_first_batch(scans, cfg, use_height=False, augment=True)
+    bnm = flags.bn_momentum
+    for _ in range(2):
+        step(batch, bnm)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(batch, bnm), reps=10, warmup=0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    aux = step(batch, bnm)
+    require(math.isfinite(aux["loss"].item()), "GF step loss not finite")
+    print(f"[train step] GroupFree3D FSB B={B} N={N_GF} (CLI defaults: 6"
+          f" decoder layers, 256 queries, AdamW, clip 0.1, BN momentum"
+          f" {bnm}): {step_ms:.3f} ms per step (median of 10 after 2"
+          f" warm-ups), {B / step_ms * 1e3:.1f} scenes/s, peak"
+          f" {peak_gb:.2f} GiB, loss {aux['loss'].item():.4f}  | {header}")
+    phases = step_phases(
+        model, opt,
+        lambda eps: gf_losses.get_loss(eps[0], cfg, **loss_kw)[0], [batch],
+        bnm)
+    print("  phases (median of 5, CUDA events): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in phases.items()))
+    dev_ms = profile_steps(lambda: step(batch, bnm), "GF train steps")
+    print(f"  device busy {dev_ms / step_ms:.3f} of the unprofiled step"
+          f" ({dev_ms:.3f} of {step_ms:.3f} ms)")
+
+    # bitwise determinism of a whole step, the dropout draws seeded alike
+    state = copy.deepcopy(model.state_dict())
+    opt_state = copy.deepcopy(opt.state_dict())
+    after = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        # a copy: the optimizer keeps the tensors it is given and steps
+        # them in place
+        opt.load_state_dict(copy.deepcopy(opt_state))
+        torch.manual_seed(1)
+        step(batch, bnm)
+        after.append([p.detach().clone() for p in model.parameters()])
+    differ = sum(not torch.equal(a, b) for a, b in zip(*after))
+    print(f"[determinism] GroupFree3D: two steps from one state and batch:"
+          f" {differ} of {len(after[0])} parameter tensors differ bitwise")
+    return launches
+
+
+def gf_learning_check(tmp, counters):
+    """GF FSB through ``gf_fsb.main`` on the shapefix train split (40
+    scans; its 12-scan val), at the JAX package's shapefix run's
+    configuration, for 50 epochs of 5 steps and the in-loop evaluation at
+    epoch 49; each epoch's loss beside the JAX run's. Fails unless the
+    mean loss over epochs 40-49 lies within LEARN_BAND of the JAX run's
+    and mAP@0.25 at epoch 49 reaches LEARN_MIN_MAP."""
+    import statistics as stats
+
+    from backtoreality_tpu_torch.datagen.shapefix import write_shapefix_train
+    from backtoreality_tpu_torch.train import gf_fsb
+
+    root = pathlib.Path(tmp) / "shapefix"
+    t0 = time.perf_counter()
+    train, val = write_shapefix_train(root)
+    print(f"[learning check] shapefix train {len(train)} scans, val"
+          f" {len(val)}, written in {time.perf_counter() - t0:.1f} s")
+    log = root / "log"
+    reset(counters)
+    t0 = time.perf_counter()
+    gf_fsb.main([
+        "--data_root", str(root / "train"), "--val_data_root",
+        str(root / "val"), "--train_split", "all", "--val_split", "all",
+        "--log_dir", str(log), "--device", "cuda", "--batch_size", str(B),
+        "--num_point", "20000", "--use_height", "--num_decoder_layers", "6",
+        "--num_target", "256", "--fps_candidates", "8192",
+        "--lr_decay_epochs", "210", "260", "--max_epoch", str(LEARN_EPOCHS),
+        "--val_freq", str(LEARN_EPOCHS)])
+    secs = time.perf_counter() - t0
+    steps = LEARN_EPOCHS * (len(train) // B)
+    check_counts("learning check", read_counts(counters), "gf",
+                 steps + math.ceil(len(val) / B), steps)
+    rows = [json.loads(line) for line in
+            (log / "metrics.jsonl").read_text().splitlines()]
+    card = {r["step"]: r["loss"] for r in rows if "loss" in r}
+    ref_rows = [json.loads(line) for line in
+                (ROOT / LEARN_METRICS).read_text().splitlines()]
+    ref = {r["step"]: r["loss"] for r in ref_rows if "loss" in r}
+    ref_map = next(r["mAP"] for r in ref_rows
+                   if r.get("kind") == "eval" and r["step"] == 49)
+    require(sorted(card) == list(range(LEARN_EPOCHS))
+            and all(map(math.isfinite, card.values())),
+            f"learning check: epoch losses {card}")
+    print(f"[learning check] gf_fsb.main, {steps} steps + the evaluation in"
+          f" {secs:.1f} s; loss by epoch, card / JAX package (ratio):")
+    for e in range(LEARN_EPOCHS):
+        print(f"  epoch {e:2d}: {card[e]:.4f} / {ref[e]:.4f}"
+              f" ({card[e] / ref[e]:.3f})")
+    late = range(max(LEARN_EPOCHS - 10, 0), LEARN_EPOCHS)
+    mean_card = stats.mean(card[e] for e in late)
+    mean_ref = stats.mean(ref[e] for e in late)
+    ratio = mean_card / mean_ref
+    ev = next(r for r in rows if r.get("kind") == "eval")
+    print(f"  mean loss over epochs {late.start}-{late.stop - 1}: card"
+          f" {mean_card:.4f}, JAX package {mean_ref:.4f}, ratio {ratio:.3f}"
+          f" (allowed {LEARN_BAND[0]}-{LEARN_BAND[1]})")
+    print(f"  epoch 49 mAP@0.25: card {ev['mAP@0.25']:.4f}, JAX package"
+          f" {ref_map:.4f} (at least {LEARN_MIN_MAP}); mAP@0.5: card"
+          f" {ev['mAP@0.5']:.4f}, JAX package {LEARN_JAX_MAP50}")
+    require(LEARN_BAND[0] <= ratio <= LEARN_BAND[1],
+            f"learning check: late loss ratio {ratio:.3f} outside"
+            f" {LEARN_BAND}")
+    require(ev["mAP@0.25"] >= LEARN_MIN_MAP,
+            f"learning check: mAP@0.25 {ev['mAP@0.25']:.4f} below"
+            f" {LEARN_MIN_MAP}")
+    return dict(seconds=secs, ratio=ratio, map25=ev["mAP@0.25"],
+                map50=ev["mAP@0.5"])
+
+
 def main() -> int:
     import torch
 
@@ -1249,6 +1576,17 @@ def main() -> int:
     _, x, _, c, r, s = sa_calls[2]
     check_localize("sa3_xyz_only", x, None, c, r, s, bq, grouping, reps=0)
     del ep
+    # GroupFree3D's fixture: 8 objects of 5500 points and 8000 floor points,
+    # 52000 a scan, so the 50000-point draw takes no point twice
+    gf_scans = pathlib.Path(tmp.name) / "gf_scans"
+    write_synthetic_scans(gf_scans, cfg, num_scans=NUM_SCANS, seed=2,
+                          points_per_object=5500, floor_points=8000)
+    gf_fps, gf_bq, gf_group, gf_local = gf_kernel_phase(gf_scans, cfg, fps,
+                                                        bq, grouping)
+    fps_records.append(gf_fps)
+    bq_records.append(gf_bq)
+    group_fwd += gf_group
+    local_fwd += gf_local
     if args.kernels_only:
         print(json.dumps({"kernels_only": {
             "fps": fps_records, "fps_floor_us": {
@@ -1307,6 +1645,12 @@ def main() -> int:
     paths.update(recipe_phase(scans, virtual, tmp.name, counters))
     da_step_phase(scans, virtual, cfg, header)
     gate_phase(tmp.name, counters)
+
+    # 7. GroupFree3D: serving, FSB and WSB, and the learning check
+    paths["gf_serving"] = gf_serving_phase(gf_scans, tmp.name, cfg, counters,
+                                           header)
+    paths.update(gf_train_phase(gf_scans, tmp.name, cfg, counters, header))
+    gf_learning_check(tmp.name, counters)
     tmp.cleanup()
 
     def by_path(name):
@@ -1341,7 +1685,8 @@ def main() -> int:
     kernels_line[0]["serial_floor_us"] = {str(k): v
                                           for k, v in floor.items()}
     for k in kernels_line:
-        require(all(k["launches_by_path"][p] > 0 for p in TRAINING),
+        require(all(k["launches_by_path"][p] > 0
+                    for p in TRAINING + GF_TRAINING),
                 f"{k['name']}: not launched on every training path")
     print(header)
     print(json.dumps({"kernels": kernels_line}))

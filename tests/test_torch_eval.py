@@ -148,7 +148,14 @@ def test_port_imports_no_jax():
     for module in ("bridge.py", "datagen/shapes.py", "datagen/library.py",
                    "datagen/shapefix.py", "models/votenet/da.py", "train/votenet_wsb.py",
                    "train/votenet_br.py",
-                   "train/votenet_br_center_refine.py"):
+                   "train/votenet_br_center_refine.py",
+                   "models/groupfree/__init__.py",
+                   "models/groupfree/backbone.py",
+                   "models/groupfree/detector.py",
+                   "models/groupfree/modules.py",
+                   "models/groupfree/transformer.py",
+                   "losses/groupfree.py", "train/groupfree.py",
+                   "train/gf_fsb.py", "train/gf_wsb.py"):
         assert port / module in files, module
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
