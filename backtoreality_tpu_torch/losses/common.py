@@ -7,6 +7,7 @@ matches the JAX package's x64 run to rounding.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -62,3 +63,30 @@ def one_hot_f32(labels, num: int):
     labels = labels.long()
     classes = torch.arange(num, device=labels.device)
     return (labels[..., None] == classes).to(torch.float32)
+
+
+def compute_jitter_loss(end_points):
+    """MSE(jitter_pred, center_jitter): the CenterRefine jitter loss."""
+    return torch.mean(torch.square(end_points["center_jitter"]
+                                   - end_points["jitter_pred"]))
+
+
+def refine_center_labels(end_points_S, end_points_T, epoch,
+                         ramp_epochs: float):
+    """CenterRefine label refinement: subtract the jitter (the source's GT
+    one, the target's prediction, detached) from the weak centres, ramped
+    by min(epoch / ramp_epochs, 1) (VoteNet 60, GroupFree3D 120). The ramp
+    is rounded as the JAX step computes it from its float32 epoch. Returns
+    updated end_points dicts (functional; the reference mutates in
+    place)."""
+    ramp = float(min(np.float32(epoch) / np.float32(ramp_epochs),
+                     np.float32(1.0)))
+    new_S = dict(end_points_S)
+    new_T = dict(end_points_T)
+    new_S["center_label"] = (end_points_S["center_label"]
+                             - ramp * end_points_S["center_jitter"])
+    refined_T = (end_points_T["center_label"]
+                 - ramp * end_points_T["jitter_pred"]
+                 * end_points_T["box_label_mask"][..., None])
+    new_T["center_label"] = refined_T.detach()
+    return new_S, new_T

@@ -21,10 +21,11 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
-from backtoreality_tpu_torch.losses.common import (masked_mean, one_hot_f32,
+from backtoreality_tpu_torch.losses.common import (compute_jitter_loss,
+                                                   masked_mean, one_hot_f32,
+                                                   refine_center_labels,
                                                    softmax_ce,
                                                    softmax_focal_loss)
 from backtoreality_tpu_torch.losses.common import take_rows as _take
@@ -338,36 +339,11 @@ def get_loss_DA(end_points_S, end_points_T, config):
     return loss, aux
 
 
-def compute_jitter_loss(end_points):
-    """`loss_helper.py:667-672`: MSE(jitter_pred, center_jitter)."""
-    return torch.mean(torch.square(end_points["center_jitter"]
-                                   - end_points["jitter_pred"]))
-
-
-def refine_center_labels(end_points_S, end_points_T, epoch):
-    """CenterRefine label refinement (`loss_helper.py:698-701`):
-    progressively subtract the (GT for source / predicted and detached
-    for target) jitter from the weak centre labels. Returns updated
-    end_points dicts (functional; the reference mutates in place). The
-    ramp min(epoch / 60, 1) is rounded as the JAX step computes it from
-    its float32 epoch."""
-    ramp = float(min(np.float32(epoch) / np.float32(60.0), np.float32(1.0)))
-    new_S = dict(end_points_S)
-    new_T = dict(end_points_T)
-    new_S["center_label"] = (end_points_S["center_label"]
-                             - ramp * end_points_S["center_jitter"])
-    refined_T = (end_points_T["center_label"]
-                 - ramp * end_points_T["jitter_pred"]
-                 * end_points_T["box_label_mask"][..., None])
-    new_T["center_label"] = refined_T.detach()
-    return new_S, new_T
-
-
 def get_loss_DA_jitter(end_points_S, end_points_T, epoch, config):
     """BR+CenterRefine criterion (`loss_helper.py:675-803`); `epoch` is a
     host number. Returns (loss, aux)."""
     end_points_S, end_points_T = refine_center_labels(
-        end_points_S, end_points_T, epoch)
+        end_points_S, end_points_T, epoch, ramp_epochs=60)
 
     aux = {}
     jitter_loss_S = compute_jitter_loss(end_points_S)

@@ -7,6 +7,12 @@ base_xyz and base_size detached between layers and per-layer learned
 position embeddings added to Q/K/V. The lists of per-layer modules are
 ``nn.ModuleList``s, which `bridge` maps from the JAX package's
 ``decoder_0``, ``decoder_1``, ... names.
+
+The domain-adaptation models (`da.py`) add their heads through two hooks
+of `forward`: `_before_queries` (the jitter head, on the backbone's
+outputs and the labels passed after the point clouds) and `_last_query`
+(the local discriminator, on the last decoder layer's query before its
+prediction head).
 """
 
 from __future__ import annotations
@@ -94,14 +100,24 @@ class GroupFreeDetector(nn.Module):
         end_points["query_points_sample_inds"] = inds
         return q_xyz, q_feat
 
-    def forward(self, point_clouds):
-        """point_clouds (B, N, 3 + C). Returns the end_points dict, with
-        the per-head keys under the prefixes ``proposal_``,
-        ``0head_`` ... and ``last_``."""
+    def _before_queries(self, end_points):
+        """Hook: runs on the backbone's end_points (and any labels given
+        to `forward`) before the queries are selected."""
+
+    def _last_query(self, end_points, query):
+        """Hook: runs on the last decoder layer's query (B, K, 288) before
+        that layer's prediction head."""
+
+    def forward(self, point_clouds, *labels):
+        """point_clouds (B, N, 3 + C); `labels` go to `_before_queries`
+        (none for this model). Returns the end_points dict, with the
+        per-head keys under the prefixes ``proposal_``, ``0head_`` ...
+        and ``last_``."""
         end_points = self.backbone_net(point_clouds)
         end_points["seed_inds"] = end_points["fp2_inds"]
         end_points["seed_xyz"] = end_points["fp2_xyz"]
         end_points["seed_features"] = end_points["fp2_features"]
+        self._before_queries(end_points, *labels)
 
         cluster_xyz, cluster_feature = self._select_queries(end_points)
         base_xyz, base_size = self.proposal_head(
@@ -128,6 +144,8 @@ class GroupFreeDetector(nn.Module):
                 else self.decoder_cross_posembeds[i](key_pos))
             query = self.decoder[i](query, key, query_pos_embed,
                                     key_pos_embed)
+            if prefix == "last_":
+                self._last_query(end_points, query)
             base_xyz, base_size = self.prediction_heads[i](
                 query, cluster_xyz, end_points, prefix)
             base_xyz, base_size = base_xyz.detach(), base_size.detach()

@@ -11,9 +11,10 @@ channels-last (B, N, C):
   `ops.group_localize_stratified`, one kernel on the card) -> SharedMLP ->
   max-pool over the neighbourhood.
 
-Only what VoteNet runs is ported: the stratified query, xyz concatenated
-to the features (radius-normalized in `SAModuleVotes`, not in
-`SAModuleCenters`), and max pooling.
+Only what the ported models run is ported: the stratified query, xyz
+concatenated to the features (radius-normalized in `SAModuleVotes`; in
+`SAModuleCenters` when `normalize_xyz` is set, as GroupFree3D's jitter
+head sets it), and max pooling.
 """
 
 from __future__ import annotations
@@ -71,21 +72,24 @@ class SAModuleVotes(nn.Module):
 class SAModuleCenters(nn.Module):
     """Set abstraction around *given* centres — the jitter head
     (`PointnetSAModuleCenters`, `pointnet2_modules.py:357-451`, with
-    use_xyz on, normalize_xyz off, max pooling).
+    use_xyz on and max pooling).
 
-    The grouping is `ops.group_localize_stratified` with radius 1.0: the
-    layer does not normalize the local coordinates, and x / 1.0 == x in
-    IEEE arithmetic, so the fused entry gives the un-normalized grouping
-    bit for bit."""
+    The grouping is `ops.group_localize_stratified`, which divides the
+    local coordinates by the radius when `normalize_xyz` is set
+    (GroupFree3D's head) and by 1.0 otherwise (VoteNet's): x / 1.0 == x in
+    IEEE arithmetic, so the fused entry then gives the un-normalized
+    grouping bit for bit."""
 
     def __init__(self, radius: float, nsample: int, in_features: int,
-                 mlp: tp.Sequence[int], query_mode: str = "stratified"):
+                 mlp: tp.Sequence[int], query_mode: str = "stratified",
+                 normalize_xyz: bool = False):
         super().__init__()
         if query_mode != "stratified":
             raise NotImplementedError(
                 f"query_mode {query_mode!r} is not ported")
         self.radius = radius
         self.nsample = nsample
+        self.scale = radius if normalize_xyz else 1.0
         self.mlp = SharedMLP(3 + in_features, mlp)
 
     def forward(self, xyz, features, centers):
@@ -94,7 +98,7 @@ class SAModuleCenters(nn.Module):
         idx, hit = ops.ball_query_stratified(
             xyz, centers, self.radius, self.nsample, return_hit=True)
         grouped = ops.group_localize_stratified(xyz, features, centers, idx,
-                                                hit, 1.0)
+                                                hit, self.scale)
         return torch.amax(self.mlp(grouped), dim=2)
 
 

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from backtoreality_tpu_torch import bridge
-from backtoreality_tpu_torch.nn.norm import bn_momentum_schedule
+from backtoreality_tpu_torch.nn.norm import (bn_momentum_schedule,
+                                             set_bn_momentum)
 
 
 def resolve_device(name: str | None) -> torch.device:
@@ -49,6 +50,15 @@ def to_device(batch: dict, device) -> dict:
     """Host batch (numpy arrays) -> tensors on `device`."""
     return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
             for k, v in batch.items()}
+
+
+def model_args(batch, jitter: bool) -> tuple:
+    """The model's inputs from a batch: the point clouds, and for the
+    jitter models also the centre and class labels."""
+    if jitter:
+        return (batch["point_clouds"], batch["center_label"],
+                batch["sem_cls_label"])
+    return (batch["point_clouds"],)
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +316,20 @@ def scalars(aux: dict) -> dict:
     """The 0-d entries of a criterion's aux dict, detached (they stay on
     the device)."""
     return {k: v.detach() for k, v in aux.items() if v.dim() == 0}
+
+
+def update(model, optimizer, bn_momentum, forward_loss) -> dict:
+    """One training update: `forward_loss()` -> (loss, aux) runs in train
+    mode (dropout on, BN running statistics moving with `bn_momentum`),
+    then one backward and one optimizer step. Returns the aux scalars (on
+    the device)."""
+    model.train()
+    set_bn_momentum(model, bn_momentum)
+    loss, aux = forward_loss()
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    return scalars(aux)
 
 
 def fetch_aux_means(aux_hist) -> dict[str, float]:

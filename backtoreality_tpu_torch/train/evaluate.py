@@ -110,15 +110,6 @@ def build_model(flags, cfg, kind: str = "plain") -> VoteNet:
         fps_candidates=flags.fps_candidates)
 
 
-def model_args(batch, jitter: bool) -> tuple:
-    """The model's inputs from a batch: the point clouds, and for the
-    jitter model also the centre and class labels."""
-    if jitter:
-        return (batch["point_clouds"], batch["center_label"],
-                batch["sem_cls_label"])
-    return (batch["point_clouds"],)
-
-
 def _print_metrics(name, t, runs):
     """The JAX package's print: one seed's metrics, or each key's mean
     +/- sigma (with the seeds' values for mAP and AR)."""
@@ -209,7 +200,8 @@ def main(argv=None):
         with torch.inference_mode():
             for batch in loader:
                 end_points = model(*(torch.from_numpy(a).to(device)
-                                     for a in model_args(batch, jitter)))
+                                     for a in common.model_args(batch,
+                                                               jitter)))
                 outs = {k: end_points[k].cpu().numpy() for k in keys}
                 gts = parse_groundtruths(batch, config_dict)
                 for prefix in prefixes:

@@ -1,28 +1,37 @@
-"""GroupFree3D training loops: FSB and WSB.
+"""GroupFree3D training loops: FSB, WSB, BR and BR+CenterRefine.
 
 Counterpart of ``backtoreality_tpu/train/groupfree.py`` (reference
-`train_GF_{FSB,WSB}.py`): a train step (train-mode forward with dropout,
-the recipe's criterion, backward, the gradients clipped to a global norm
-of 0.1, AdamW with a learning rate of its own for the decoder, both set
-from per-iteration warmup and step or cosine schedules), a constant BN
-momentum, checkpoints of model and optimizer, and the reference
-evaluation protocol (per-prefix AP, confidence threshold 0.0) every
-`val_freq` epochs. It runs on the CUDA card unless ``--device cpu`` is
-given, and raises if no card is present and the CPU was not asked for.
+`train_GF_{FSB,WSB,BR,BR_CenterRefine}.py`): a train step (train-mode
+forward with dropout, the recipe's criterion, backward, the gradients
+clipped to a global norm of 0.1, AdamW with a learning rate of its own for
+the decoder, both set from per-iteration warmup and step or cosine
+schedules), a constant BN momentum, checkpoints of model and optimizer,
+and the reference evaluation protocol (per-prefix AP, confidence
+threshold 0.0) every `val_freq` epochs. BR and BR+CenterRefine train on
+two domains at once: each step runs the source (virtual scenes, full
+labels) and then the target (real scenes, weak labels) forward, each with
+its own dropout draws and the BN running statistics moving through both in
+that order, and takes one backward, one clip and one AdamW step on the
+domain-adaptation criterion; both domains' centres are jittered. It runs
+on the CUDA card unless ``--device cpu`` is given, and raises if no card
+is present and the CPU was not asked for.
 
 Flag names and defaults are the JAX package's (`train_GF_FSB.py:23-103`).
 Not ported, and so refused by the parser: ``--num_devices``, ``--bf16``,
 ``--f32_tail``, ``--bn_recal_batches`` (and with it BN recalibration
 before evaluation), ``--multihost``, ``--guard_every_steps``,
 ``--profile_dir``, ``--ram_cache_gb`` (the datasets keep their default
-RAM cache of 8 GiB) and ``--query_mode exact``. The BR and
-BR+CenterRefine recipes wait for the DA and jitter models (ROADMAP.md,
-A.8).
+RAM cache of 8 GiB) and ``--query_mode exact``.
 
 Usage:
   python -m backtoreality_tpu_torch.train.gf_fsb --data_root D \
       [--log_dir log_gf] [--device cpu] [...]
   python -m backtoreality_tpu_torch.train.gf_wsb --data_root D [...]
+  python -m backtoreality_tpu_torch.train.gf_br --data_root REAL \
+      --source_data_root VIRTUAL [...]
+  python -m backtoreality_tpu_torch.train.gf_br_center_refine \
+      --data_root REAL --source_data_root VIRTUAL \
+      [--checkpoint_path BR_LOG/ckpt_epoch_last.tar] [...]
 """
 
 from __future__ import annotations
@@ -35,20 +44,23 @@ import torch
 
 from backtoreality_tpu_torch.data import get_config
 from backtoreality_tpu_torch.data.dataset import DetectionDataset
-from backtoreality_tpu_torch.data.loader import DetectionDataLoader
+from backtoreality_tpu_torch.data.loader import DetectionDataLoader, cycle
 from backtoreality_tpu_torch.eval import (APCalculator, parse_groundtruths,
                                           parse_predictions)
 from backtoreality_tpu_torch.losses import groupfree as gf_losses
-from backtoreality_tpu_torch.models.groupfree import GroupFreeDetector
-from backtoreality_tpu_torch.nn import set_bn_momentum
+from backtoreality_tpu_torch.models.groupfree import (
+    GroupFreeDetector, GroupFreeDetectorDA, GroupFreeDetectorDAJitter)
 from backtoreality_tpu_torch.train import common
-from backtoreality_tpu_torch.train.common import to_device
+from backtoreality_tpu_torch.train.common import model_args, to_device
 from backtoreality_tpu_torch.train.observability import ScalarHistory
 
 __all__ = ["add_flags", "build_model", "loss_kwargs", "eval_prefixes",
-           "make_train_step", "make_eval_step", "evaluate", "main"]
+           "make_train_step", "make_da_train_step", "make_eval_step",
+           "evaluate", "main"]
 
-RECIPES = ("fsb", "wsb")
+RECIPES = ("fsb", "wsb", "br", "br_center_refine")
+MODELS = {"plain": GroupFreeDetector, "da": GroupFreeDetectorDA,
+          "da_jitter": GroupFreeDetectorDAJitter}
 
 GF_EVAL_CONFIG_DICT = dict(
     remove_empty_box=False, use_3d_nms=True, nms_iou=0.25,
@@ -145,9 +157,10 @@ def _input_dim(flags) -> int:
     return int(flags.use_height) + 3 * int(flags.use_color)
 
 
-def build_model(flags, cfg) -> GroupFreeDetector:
-    """The plain GroupFree3D detector at `flags`."""
-    return GroupFreeDetector(
+def build_model(flags, cfg, kind: str = "plain") -> GroupFreeDetector:
+    """The GroupFree3D detector of `kind` (plain, da or da_jitter) at
+    `flags`."""
+    return MODELS[kind](
         num_class=cfg.num_class,
         num_heading_bin=cfg.num_heading_bin,
         num_size_cluster=cfg.num_size_cluster,
@@ -191,35 +204,59 @@ def eval_prefixes(flags) -> tuple[str, ...]:
     return ("last_",) if flags.num_decoder_layers > 0 else ("proposal_",)
 
 
-def make_train_step(model, optimizer, criterion, cfg, loss_kw):
+def make_train_step(model, optimizer, criterion, cfg, loss_kw, *,
+                    jitter=False):
     """step(batch, bn_momentum) -> scalar aux tensors (on the device).
 
     One train-mode forward (dropout on), the criterion, backward and an
     optimizer step (which clips and sets its learning rates itself, see
     `common.make_gf_optimizer`); BN running statistics move with
-    `bn_momentum`."""
+    `bn_momentum`. With `jitter`, the model also takes the batch's centre
+    and class labels."""
 
     def step(batch, bn_momentum):
-        model.train()
-        set_bn_momentum(model, bn_momentum)
-        end_points = model(batch["point_clouds"])
-        loss, aux = criterion({**batch, **end_points}, cfg, **loss_kw)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        return common.scalars(aux)
+        def forward_loss():
+            end_points = model(*model_args(batch, jitter))
+            return criterion({**batch, **end_points}, cfg, **loss_kw)
+
+        return common.update(model, optimizer, bn_momentum, forward_loss)
 
     return step
 
 
-def make_eval_step(model, criterion, cfg, loss_kw, prefixes):
-    """step(batch) -> (the scored heads' predictions, scalar aux)."""
+def make_da_train_step(model, optimizer, cfg, loss_kw, *, jitter=False):
+    """step(batch_S, batch_T, bn_momentum, epoch) -> scalar aux tensors.
+
+    The source forward, then the target forward (each draws its own
+    dropout; the BN running statistics move through both, in that order),
+    the BR criterion (`get_loss_DA`), or with `jitter` the CenterRefine
+    one (`get_loss_DA_jitter`, which reads `epoch`), one backward and one
+    optimizer step."""
+
+    def step(batch_S, batch_T, bn_momentum, epoch):
+        def forward_loss():
+            ep_S = {**batch_S, **model(*model_args(batch_S, jitter))}
+            ep_T = {**batch_T, **model(*model_args(batch_T, jitter))}
+            if jitter:
+                return gf_losses.get_loss_DA_jitter(ep_S, ep_T, epoch, cfg,
+                                                    **loss_kw)
+            return gf_losses.get_loss_DA(ep_S, ep_T, cfg, **loss_kw)
+
+        return common.update(model, optimizer, bn_momentum, forward_loss)
+
+    return step
+
+
+def make_eval_step(model, criterion, cfg, loss_kw, prefixes, *,
+                   jitter=False):
+    """step(batch) -> (the scored heads' predictions, scalar aux). The
+    jitter model takes the batch's centre and class labels here too."""
     keys = [p + s for p in prefixes for s in EVAL_KEY_SUFFIXES]
 
     def step(batch):
         model.eval()
         with torch.no_grad():
-            outs = model(batch["point_clouds"])
+            outs = model(*model_args(batch, jitter))
             _, aux = criterion({**batch, **outs}, cfg, **loss_kw)
         return {k: outs[k] for k in keys}, common.scalars(aux)
 
@@ -252,48 +289,107 @@ def evaluate(loader, eval_step, cfg, device, logger, flags, prefixes):
 
 
 def _make_datasets(flags, cfg, recipe):
-    """(train, val) datasets with GF's labels; WSB jitters the centres."""
+    """(source, train, val) datasets with GF's labels; the source (the
+    DA recipes' virtual scenes, split ``train_aug``) is None for FSB and
+    WSB. WSB jitters the training centres; BR and CenterRefine jitter both
+    domains' (`backtoreality_tpu/train/groupfree.py:423-447`)."""
     kw = dict(num_points=flags.num_point, use_color=flags.use_color,
               use_height=flags.use_height, seed=flags.rng_seed,
               gf_labels=True)
+    jitter = 0.0 if recipe == "fsb" else flags.center_jitter
+    source_ds = None
+    if recipe in ("br", "br_center_refine"):
+        source_ds = DetectionDataset(cfg, flags.source_data_root,
+                                     split="train_aug", augment=True,
+                                     center_jitter=jitter, **kw)
     train_ds = DetectionDataset(
         cfg, flags.data_root, split=flags.train_split, augment=True,
-        center_jitter=0.0 if recipe == "fsb" else flags.center_jitter, **kw)
+        center_jitter=jitter, **kw)
     val_ds = DetectionDataset(
         cfg, flags.val_data_root or flags.data_root, split=flags.val_split,
         augment=False, **kw)
-    return train_ds, val_ds
+    return source_ds, train_ds, val_ds
+
+
+def _restore(model, optimizer, flags, recipe, ckpt_path, logger):
+    """Model (and with --resume optimizer) state from a checkpoint;
+    returns the epoch to start at. --resume continues from the run's own
+    last checkpoint, or --checkpoint_path if given. Without it,
+    --checkpoint_path warm-starts the weights only: FSB and WSB need every
+    entry (a checkpoint of another graph is refused); BR and CenterRefine
+    graft what matches and keep the rest fresh, as the JAX package's
+    partial restore does (BR's weights into CenterRefine's new heads)."""
+    if flags.resume:
+        src = flags.checkpoint_path or ckpt_path
+        if not pathlib.Path(src).exists():
+            logger.info("--resume: no checkpoint at %s, fresh start", src)
+            return 0
+        ckpt = common.load_checkpoint(src)
+        model.load_state_dict(ckpt["model"])
+        optimizer.load_state_dict(ckpt["optimizer"])
+        logger.info("resumed %s (epoch %d)", src, ckpt["epoch"])
+        return ckpt["epoch"] + 1
+    if flags.checkpoint_path and recipe in ("fsb", "wsb"):
+        common.restore_weights(model, flags.checkpoint_path, "GroupFree3D",
+                               logger.info)
+    elif flags.checkpoint_path:
+        state, ckpt_epoch = common.load_weights(flags.checkpoint_path)
+        common.partial_restore(model, state, log=logger.info)
+        logger.info("grafted checkpoint %s (epoch %s)",
+                    flags.checkpoint_path, ckpt_epoch)
+    return 0
+
+
+def _pairs(loader_S, loader_T):
+    """The epoch's (source, target) batches: a cycle of the shorter loader
+    zipped with the longer (`backtoreality_tpu/train/groupfree.py:571-575`);
+    the loop stops after as many pairs as the shorter holds."""
+    if len(loader_S) <= len(loader_T):
+        return zip(cycle(loader_S), loader_T)
+    return zip(loader_S, cycle(loader_T))
 
 
 def main(recipe: str, argv=None):
-    """Parse `argv` (default: the command line) and train `recipe`, fsb or
-    wsb. Returns the trained model and its optimizer."""
-    if recipe in ("br", "br_center_refine"):
-        raise SystemExit(f"GroupFree3D {recipe} is not ported yet: it needs"
-                         " the DA and jitter models (ROADMAP.md, A.8)")
+    """Parse `argv` (default: the command line) and train `recipe`: fsb,
+    wsb, br or br_center_refine. Returns the trained model and its
+    optimizer."""
     if recipe not in RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}")
+    da = recipe in ("br", "br_center_refine")
+    jitter_model = recipe == "br_center_refine"
     parser = argparse.ArgumentParser()
     add_flags(parser)
-    if recipe == "wsb":
+    if recipe != "fsb":
         parser.add_argument("--center_jitter", type=float, default=0.1)
+    if da:
+        parser.add_argument("--source_data_root", required=True,
+                            help="virtual-scene data root (obj_aug)")
     flags = parser.parse_args(argv)
 
     device = common.resolve_device(flags.device)
     cfg = get_config(flags.dataset)
     logger = common.setup_logger(flags.log_dir, name="gf")
     common.dump_config(flags.log_dir, vars(flags))
-    train_ds, val_ds = _make_datasets(flags, cfg, recipe)
+    source_ds, train_ds, val_ds = _make_datasets(flags, cfg, recipe)
     train_loader = DetectionDataLoader(train_ds, flags.batch_size,
                                        seed=flags.rng_seed)
     val_loader = DetectionDataLoader(val_ds, flags.batch_size,
                                      shuffle=False, drop_last=False)
-    logger.info("train scans: %d, val scans: %d", len(train_ds),
-                len(val_ds))
+    loader_S = None
+    if da:
+        loader_S = DetectionDataLoader(source_ds, flags.batch_size,
+                                       seed=flags.rng_seed + 1)
+        logger.info("S scans: %d, T scans: %d, val: %d", len(source_ds),
+                    len(train_ds), len(val_ds))
+        steps_per_epoch = min(len(loader_S), len(train_loader))
+    else:
+        logger.info("train scans: %d, val scans: %d", len(train_ds),
+                    len(val_ds))
+        steps_per_epoch = len(train_loader)
 
     torch.manual_seed(flags.rng_seed)
-    model = build_model(flags, cfg).to(device)
-    steps_per_epoch = len(train_loader)
+    kind = "da_jitter" if jitter_model else ("da" if da else "plain")
+    model = build_model(flags, cfg, kind).to(device)
     optimizer = common.make_gf_optimizer(
         model,
         common.make_gf_schedule(flags.learning_rate, flags, steps_per_epoch),
@@ -305,33 +401,36 @@ def main(recipe: str, argv=None):
                  else gf_losses.get_loss_weak)
 
     ckpt_path = pathlib.Path(flags.log_dir) / "ckpt_epoch_last.tar"
-    start_epoch = 0
-    if flags.resume:
-        # the run's own last checkpoint, or --checkpoint_path if given
-        src = flags.checkpoint_path or ckpt_path
-        if pathlib.Path(src).exists():
-            ckpt = common.load_checkpoint(src)
-            model.load_state_dict(ckpt["model"])
-            optimizer.load_state_dict(ckpt["optimizer"])
-            start_epoch = ckpt["epoch"] + 1
-            logger.info("resumed %s (epoch %d)", src, ckpt["epoch"])
-        else:
-            logger.info("--resume: no checkpoint at %s, fresh start", src)
-    elif flags.checkpoint_path:
-        # the weights only (the JAX package's checkpoints too), as its
-        # partial restore of params and batch_stats
-        common.restore_weights(model, flags.checkpoint_path, "GroupFree3D",
-                               logger.info)
+    start_epoch = _restore(model, optimizer, flags, recipe, ckpt_path,
+                           logger)
     history = ScalarHistory(flags.log_dir)
 
-    train_step = make_train_step(model, optimizer, criterion, cfg, loss_kw)
+    if da:
+        train_step = make_da_train_step(model, optimizer, cfg, loss_kw,
+                                        jitter=jitter_model)
+    else:
+        train_step = make_train_step(model, optimizer, criterion, cfg,
+                                     loss_kw)
     prefixes = eval_prefixes(flags)
-    eval_step = make_eval_step(model, criterion, cfg, loss_kw, prefixes)
+    # the DA recipes evaluate with the weak criterion on the target
+    eval_step = make_eval_step(model, criterion, cfg, loss_kw, prefixes,
+                               jitter=jitter_model)
     for epoch in range(start_epoch, flags.max_epoch):
         train_loader.set_epoch(epoch)
         t0 = time.time()
-        aux_hist = [train_step(to_device(batch, device), flags.bn_momentum)
-                    for batch in train_loader]
+        if da:
+            loader_S.set_epoch(epoch)
+            aux_hist = []
+            for batch_S, batch_T in _pairs(loader_S, train_loader):
+                aux_hist.append(train_step(
+                    to_device(batch_S, device), to_device(batch_T, device),
+                    flags.bn_momentum, epoch))
+                if len(aux_hist) >= steps_per_epoch:
+                    break
+        else:
+            aux_hist = [train_step(to_device(batch, device),
+                                   flags.bn_momentum)
+                        for batch in train_loader]
         means = common.fetch_aux_means(aux_hist)  # waits for the device
         dt = time.time() - t0
         nb = len(aux_hist)
@@ -357,4 +456,8 @@ def main(recipe: str, argv=None):
                 "mAP": first["mAP"], "AR": first["AR"],
                 **{f"mAP@{t}": results[(prefixes[0], t)]["mAP"]
                    for t in flags.ap_iou_thresholds}}, kind="eval")
+            if da:
+                with open(pathlib.Path(flags.log_dir) / "Eval_mAP.txt",
+                          "a") as f:
+                    f.write(f"{epoch}\t{first['mAP']:.4f}\n")
     return model, optimizer

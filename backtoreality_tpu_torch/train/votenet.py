@@ -41,12 +41,10 @@ from backtoreality_tpu_torch.data.loader import DetectionDataLoader, cycle
 from backtoreality_tpu_torch.eval import (APCalculator, parse_groundtruths,
                                           parse_predictions)
 from backtoreality_tpu_torch.losses import votenet as vote_losses
-from backtoreality_tpu_torch.nn import set_bn_momentum
 from backtoreality_tpu_torch.train import common
-from backtoreality_tpu_torch.train.common import to_device
+from backtoreality_tpu_torch.train.common import model_args, to_device
 from backtoreality_tpu_torch.train.evaluate import (EVAL_CONFIG_DICT,
-                                                    EVAL_KEYS, build_model,
-                                                    model_args)
+                                                    EVAL_KEYS, build_model)
 from backtoreality_tpu_torch.train.observability import ScalarHistory
 
 __all__ = ["add_common_flags", "build_model", "make_train_step",
@@ -95,12 +93,6 @@ def add_common_flags(parser: argparse.ArgumentParser):
     return parser
 
 
-def _update(model, optimizer, loss):
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    optimizer.step()
-
-
 def make_train_step(model, optimizer, criterion, cfg, *, jitter=False):
     """step(batch, bn_momentum) -> scalar aux tensors (on the device).
 
@@ -109,12 +101,11 @@ def make_train_step(model, optimizer, criterion, cfg, *, jitter=False):
     the model also takes the batch's centre and class labels."""
 
     def step(batch, bn_momentum):
-        model.train()
-        set_bn_momentum(model, bn_momentum)
-        end_points = model(*model_args(batch, jitter))
-        loss, aux = criterion({**batch, **end_points}, cfg)
-        _update(model, optimizer, loss)
-        return common.scalars(aux)
+        def forward_loss():
+            end_points = model(*model_args(batch, jitter))
+            return criterion({**batch, **end_points}, cfg)
+
+        return common.update(model, optimizer, bn_momentum, forward_loss)
 
     return step
 
@@ -129,17 +120,14 @@ def make_da_train_step(model, optimizer, cfg, *, jitter=False):
     optimizer step."""
 
     def step(batch_S, batch_T, bn_momentum, epoch):
-        model.train()
-        set_bn_momentum(model, bn_momentum)
-        ep_S = {**batch_S, **model(*model_args(batch_S, jitter))}
-        ep_T = {**batch_T, **model(*model_args(batch_T, jitter))}
-        if jitter:
-            loss, aux = vote_losses.get_loss_DA_jitter(ep_S, ep_T, epoch,
-                                                       cfg)
-        else:
-            loss, aux = vote_losses.get_loss_DA(ep_S, ep_T, cfg)
-        _update(model, optimizer, loss)
-        return common.scalars(aux)
+        def forward_loss():
+            ep_S = {**batch_S, **model(*model_args(batch_S, jitter))}
+            ep_T = {**batch_T, **model(*model_args(batch_T, jitter))}
+            if jitter:
+                return vote_losses.get_loss_DA_jitter(ep_S, ep_T, epoch, cfg)
+            return vote_losses.get_loss_DA(ep_S, ep_T, cfg)
+
+        return common.update(model, optimizer, bn_momentum, forward_loss)
 
     return step
 

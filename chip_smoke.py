@@ -29,7 +29,12 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    features and centres). Then the same at GroupFree3D's new shape, SA1
    on N=50000 rows (B=8, FPS over the full cloud, its CLI defaults), with
    the centres its forward draws: FPS in every layout, the ball query in
-   every tile, the grouping unfused and fused for C = 3 and 3 + 1.
+   every tile, the grouping unfused and fused for C = 3 and 3 + 1; and
+   the jitter head of its CenterRefine graph at the fixture's GT centres
+   (64 a scene, most padded at +1000 and hitting no point) over the sa2
+   points and the 288-wide fp2 features: the ball query in every tile, the
+   fused grouping at C = 3 + 288 divided by r = 0.8, its backward timed,
+   with the length of its longest list.
    Kernel, plain and library times are medians of CUDA events, with the
    host's launches queued ahead of the device so that they time device
    work.
@@ -70,17 +75,25 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    ``gf_wsb`` for one epoch (2 steps) and one evaluation each (3 grouping
    backwards a step), the FSB checkpoint scored by ``evaluate --model
    groupfree``; the GF FSB train step on a fixed batch (wall, phases,
-   kernels' device time, peak memory; bitwise repeatability printed).
-   Then the learning check: ``gf_fsb`` on the shapefix train split at the
-   JAX package's shapefix configuration (N=20000, height, subset FPS over
-   8192) for 50 epochs of 5 steps, each epoch's loss beside the JAX run's
+   kernels' device time, peak memory; bitwise repeatability printed);
+   ``gf_br`` and ``gf_br_center_refine`` for one epoch (2 steps of 8 + 8
+   scenes) and one evaluation each, a 16-scan virtual fixture of 52000
+   points a scan as the source (launches 4/4/4 a forward, 4/5/5 with the
+   jitter head; 6 and 7 backwards a step), BR's checkpoint grafted into
+   CenterRefine (the partial-restore counts checked) and scored by
+   ``evaluate --model groupfree``; both DA steps on a fixed pair of
+   batches (wall, phases, kernels' device time, busy share, peak memory,
+   bitwise repeatability printed). Then the learning check: ``gf_fsb``
+   on the shapefix train split at the JAX package's shapefix
+   configuration (N=20000, height, subset FPS over 8192) for 50 epochs of
+   5 steps, each epoch's loss beside the JAX run's
    (``evidence/round5/gflad/f32_metrics.jsonl``); fails unless the mean
    loss over epochs 40-49 lies within 0.67-1.5 times the JAX run's and
    mAP@0.25 at epoch 49 reaches 0.30.
-8. Print the card's name and power limit, one JSON line with every
-   kernel's numbers (times summed over the VoteNet FSB training path's
-   shapes; launches by path, the GF paths included), and as the last line
-   ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+8. Print each phase's seconds, the card's name and power limit, one JSON
+   line with every kernel's numbers (times summed over the VoteNet FSB
+   training path's shapes; launches by path, the GF paths included), and
+   as the last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It exits nonzero without a CUDA device, and imports nothing of JAX.
 ``--kernels_only`` stops after phase 2 and prints its records as one JSON
@@ -125,8 +138,9 @@ SERVING = ("serving",)
 TRAINING = ("training", "wsb", "br", "br_center_refine")
 ALL_PATHS = SERVING + TRAINING
 JITTER_PATH = ("br_center_refine",)
-GF_TRAINING = ("gf_fsb", "gf_wsb")
+GF_TRAINING = ("gf_fsb", "gf_wsb", "gf_br", "gf_br_center_refine")
 GF_PATHS = ("gf_serving",) + GF_TRAINING
+GF_JITTER_PATH = ("gf_br_center_refine",)
 N_GF = 50000
 # launches per forward (FPS, ball query, the fused grouping) and grouping
 # backwards per train step, by model graph. A DA step runs two forwards
@@ -134,10 +148,13 @@ N_GF = 50000
 # CenterRefine the jitter head's layer in each forward and its backward in
 # the source's only (the target's jitter prediction refines labels that
 # are detached). GroupFree3D samples its queries by KPS (a top-k, no
-# kernel): SA1-SA4 a forward, SA2-SA4 a backward
+# kernel): SA1-SA4 a forward, SA2-SA4 a backward; its CenterRefine graph
+# adds the jitter head's layer, in evaluation too (it takes the GT centres)
 PER_FORWARD = {"plain": (5, 5, 5), "da": (5, 5, 5), "da_jitter": (5, 6, 6),
-               "gf": (4, 4, 4)}
-BACKWARDS_PER_STEP = {"plain": 4, "da": 8, "da_jitter": 9, "gf": 3}
+               "gf": (4, 4, 4), "gf_da": (4, 4, 4),
+               "gf_da_jitter": (4, 5, 5)}
+BACKWARDS_PER_STEP = {"plain": 4, "da": 8, "da_jitter": 9, "gf": 3,
+                      "gf_da": 6, "gf_da_jitter": 7}
 # the checkpoint gate: the JAX package's scores of lad_f32 on the 100-scan
 # shapefix val (subset FPS over 8192 candidates, 3 subsample seeds;
 # evidence/round5/r5_ladeval_f32.out), mean and its own spread per IoU
@@ -552,8 +569,9 @@ def check_group(label, points, ctr, radius, nsample, bq, grouping, reps):
     bwd_lib = cuda_ms(lambda: torch.autograd.grad(
         lib_out, pg, flat_gout, retain_graph=True), **kw)
     out_bytes = b * m * nsample * c * 4
-    fwd_bound, fwd_by = bound_ms(0, b * m * nsample * 4 + b * n * c * 4
-                                 + out_bytes)
+    # the indices and hit flags, the rows gathered, the output
+    fwd_bound, fwd_by = bound_ms(0, b * m * nsample * 5
+                                 + gathered_rows(idx, n) * c * 4 + out_bytes)
     bwd_bound, bwd_by = bound_ms(b * m * nsample * c,  # one add each
                                  out_bytes + b * m * nsample * 5
                                  + b * n * c * 4)
@@ -576,6 +594,34 @@ def check_group(label, points, ctr, radius, nsample, bq, grouping, reps):
                longest_list=per_point.max().item(),
                **{f"{k}_ms": v for k, v in passes.items()})
     return fwd, bwd
+
+
+def gathered_rows(idx, n):
+    """Distinct points (of the B*N) that a gather by `idx` (B, M, S) reads:
+    the rows a grouping forward must move, each once however many slots
+    take it (a centre that hits nothing takes one point in all its
+    slots)."""
+    import torch
+
+    b = idx.shape[0]
+    flat = idx.long() + torch.arange(b, device=idx.device)[:, None, None] * n
+    return torch.unique(flat).numel()
+
+
+def list_lengths(idx, hit, n):
+    """Entries per point (B*N) of the grouping backward's lists: one for
+    each slot that hits the point, and one for each centre whose first-hit
+    slot (slot 0, index 0, for a centre with no hit) holds it: that
+    centre's folded row of slot-filled slots."""
+    import torch
+
+    b = idx.shape[0]
+    first = torch.where(hit.any(-1), hit.int().argmax(-1), 0)  # (B, M)
+    first_idx = torch.gather(idx, 2, first[..., None])[..., 0]
+    offset = torch.arange(b, device=idx.device)[:, None] * n
+    flat = torch.cat([(idx.long() + offset[..., None])[hit],
+                      (first_idx.long() + offset).reshape(-1)])
+    return torch.bincount(flat, minlength=b * n)
 
 
 def check_localize(label, xyz, feats, ctr, radius, nsample, bq, grouping,
@@ -667,7 +713,9 @@ def check_localize(label, xyz, feats, ctr, radius, nsample, bq, grouping,
     fwd_ms = cuda_ms(lambda: fused(xyz, feats, ctr, idx, hit, radius), **kw)
     fwd_plain = cuda_ms(lambda: plain(xyz, feats, ctr, idx, hit, radius),
                         **kw)
-    in_bytes = b * m * nsample * 4 + b * n * (3 + c) * 4 + b * m * 12
+    # the indices and hit flags, the rows gathered, the centres
+    in_bytes = (b * m * nsample * 5 + gathered_rows(idx, n) * (3 + c) * 4
+                + b * m * 12)
     out_bytes = b * m * nsample * (3 + c) * 4
     fwd_bound, fwd_by = bound_ms(2 * 3 * b * m * nsample,
                                  in_bytes + out_bytes)
@@ -699,14 +747,22 @@ def check_localize(label, xyz, feats, ctr, radius, nsample, bq, grouping,
             b * m * nsample * (3 + c),  # one add each
             out_bytes + b * m * nsample * 5 + b * n * (3 + c) * 4
             + (b * m * 12 if "centres" in wanted else 0))
+        lengths = list_lengths(idx, hit, n)
+        listed = lengths[lengths > 0].float()
+        longest = lengths.max().item()
+        no_hit = (~hit.any(-1)).sum().item()
         bwd = dict(shape=label, ms=bwd_ms, plain_ms=bwd_plain,
                    library_ms=None, bound_ms=bwd_bound, bound_by=bwd_by,
                    max_abs_err=worst_abs, rel_err=max(errs.values()),
-                   gradients=wanted)
+                   gradients=wanted, longest_list=longest,
+                   **{f"{k}_ms": v for k, v in passes.items()})
         line += (f"; backward ({', '.join(wanted)}) kernel {bwd_ms:.4f} ms,"
                  f" plain {bwd_plain:.4f}, bound {bwd_bound:.4f} ({bwd_by}),"
                  " passes "
-                 + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
+                 + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+                 + f"; lists: longest {longest} entries, mean"
+                 f" {listed.mean().item():.2f} over {listed.numel()} points,"
+                 f" {no_hit} of {b * m} centres hit no point")
     print(line)
     return fwd, bwd
 
@@ -775,7 +831,7 @@ def step_phases(model, opt, loss_fn, batches, bn_momentum, jitter=False,
     import torch
 
     from backtoreality_tpu_torch.nn import set_bn_momentum
-    from backtoreality_tpu_torch.train.evaluate import model_args
+    from backtoreality_tpu_torch.train.common import model_args
 
     forwards = (["forward"] if len(batches) == 1
                 else [f"forward_{d}" for d in "ST"])
@@ -1164,23 +1220,31 @@ def gf_first_batch(scans, cfg, use_height, augment=False):
 
 
 def gf_kernel_phase(scans, cfg, fps, bq, grouping):
-    """The kernels at GroupFree3D's new shape, SA1 on N=50000 rows (its CLI
-    default), with the inputs its forward gives them: FPS bit-exact in
-    every layout; the ball query in every tile; the grouping, unfused and
-    fused with the localize step, bit-exact forward and gradients within
-    the tolerance, for C = 3 (the CLI default) and C = 3 + 1 (with
-    ``--use_height``). SA2-SA4 run at VoteNet's shapes. Returns the
-    records (FPS, ball query, grouping forward, fused forward)."""
+    """The kernels at GroupFree3D's new shapes, with the inputs its forward
+    (B=8, N=50000, its CLI defaults) gives them. SA1 on N=50000 rows: FPS
+    bit-exact in every layout; the ball query in every tile; the grouping,
+    unfused and fused with the localize step, bit-exact forward and
+    gradients within the tolerance, for C = 3 (the CLI default) and C = 3 +
+    1 (with ``--use_height``). The CenterRefine graph's jitter head: the
+    ball query (N=1024 sa2 points, the fixture's 64 GT centres a scene,
+    the unused ones padded at +1000; S=16, r=0.8) in every tile, and the
+    fused grouping over the 288-wide fp2 features (C = 3 + 288, the
+    coordinates divided by the radius), its backward timed for the
+    features' gradient. SA2-SA4 run at VoteNet's shapes. Returns the
+    records: FPS, ball query (SA1, jitter head), grouping forward, fused
+    forward (SA1 C = 3 and 4, jitter head), fused backward (jitter head)."""
     import torch
 
     from backtoreality_tpu_torch.train import groupfree
 
     torch.manual_seed(0)
     model = groupfree.build_model(gf_flags(), cfg).cuda().eval()
-    pc = gf_first_batch(scans, cfg, use_height=True)["point_clouds"]
+    batch = gf_first_batch(scans, cfg, use_height=True)
+    pc = batch["point_clouds"]
     xyz, height = pc[..., 0:3], pc[..., 3:]
     with torch.inference_mode():
-        ctr = model(xyz)["sa1_xyz"]  # the CLI default: no height feature
+        ep = model(xyz)  # the CLI default: no height feature
+    ctr = ep["sa1_xyz"]
     torch.cuda.synchronize()
     del model
     print(f"[kernels: GroupFree3D SA1] B={B} N={N_GF}, centres from the GF"
@@ -1203,7 +1267,23 @@ def gf_kernel_phase(scans, cfg, fps, bq, grouping):
                                 grouping, reps=10)
         fwd["paths"] = on_paths
         local_recs.append(fwd)
-    return fps_rec, bq_rec, group_recs, local_recs
+
+    # the jitter head (GroupFreeDetectorDAJitter.ctjt_head): the GT centres
+    # of the scenes, most of them padding that hits no point, in the fp2
+    # features at the sa2 positions; the local coordinates divided by 0.8
+    centres = batch["center_label"]
+    padded = (centres.abs() > 500).any(-1).float().mean().item()
+    print(f"[kernels: GroupFree3D jitter head] B={B}, {centres.shape[1]} GT"
+          f" centres a scene ({padded:.3f} of them padding at +1000),"
+          f" sa2 and fp2 from the GF forward, C = 3 + 288")
+    ctjt = ("gf_ctjt", ep["sa2_xyz"], ep["fp2_features"], centres, 0.8, 16)
+    ctjt_bq = check_bq(*ctjt[:2], *ctjt[3:], bq, reps=5)
+    ctjt_fwd, ctjt_bwd = check_localize(*ctjt, bq, grouping, reps=10,
+                                        needs=("features",))
+    ctjt_bq["paths"] = ctjt_fwd["paths"] = ctjt_bwd["paths"] = GF_JITTER_PATH
+    del ep
+    return (fps_rec, [bq_rec, ctjt_bq], group_recs,
+            local_recs + [ctjt_fwd], [ctjt_bwd])
 
 
 def gf_serving_phase(scans, tmp, cfg, counters, header):
@@ -1361,6 +1441,179 @@ def gf_train_phase(scans, tmp, cfg, counters, header):
     return launches
 
 
+# what `partial_restore` logs grafting a BR checkpoint into the CenterRefine
+# graph at the CLI defaults (parameters, then running statistics): the
+# JAX package's counts, which tests/test_torch_gf_da.py pins on the CPU
+GF_GRAFT_LINES = ["partial restore: copied 432 leaves, kept 8 fresh",
+                  "partial restore: copied 96 leaves, kept 4 fresh"]
+
+
+def gf_graft_fresh(cfg):
+    """The entries of the CenterRefine graph at the CLI defaults that a BR
+    checkpoint does not hold: those the graft keeps fresh."""
+    from backtoreality_tpu_torch.train import groupfree
+
+    flags = gf_flags()
+    br = groupfree.build_model(flags, cfg, "da").state_dict()
+    cr = groupfree.build_model(flags, cfg, "da_jitter").state_dict()
+    return [k for k in cr if k not in br]
+
+
+def gf_da_phase(scans, virtual, tmp, cfg, counters, header):
+    """``gf_br.main`` and ``gf_br_center_refine.main`` at the CLI defaults
+    (B=8 source + 8 target scenes, N=50000, 6 decoder layers), one epoch
+    of 2 steps and one evaluation each, the GF fixture as the target and a
+    virtual fixture as the source; the launch counts per recipe; BR's
+    checkpoint grafted into CenterRefine (its log's partial-restore
+    counts checked), the CenterRefine checkpoint scored by ``evaluate
+    --model groupfree``. Then each DA step on one fixed pair of batches
+    (epoch 30 for the label refinement): wall (median of 10 CUDA-event
+    timings after 2 warm-ups), scenes/s, peak memory, phases, kernels'
+    device time and busy share, and (printed, not gated) whether two steps
+    from one state are bitwise equal. Returns the launches by recipe."""
+    import copy
+
+    import torch
+
+    from backtoreality_tpu_torch.data.dataset import DetectionDataset
+    from backtoreality_tpu_torch.data.loader import DetectionDataLoader
+    from backtoreality_tpu_torch.losses import groupfree as gf_losses
+    from backtoreality_tpu_torch.train import (common, evaluate, gf_br,
+                                               gf_br_center_refine, groupfree)
+
+    tmp = pathlib.Path(tmp)
+    steps = NUM_SCANS // B  # one epoch; both fixtures hold NUM_SCANS scans
+    evals = math.ceil(NUM_SCANS / B)
+    fresh = gf_graft_fresh(cfg)
+    require(fresh and all(k.startswith(("ctjt_head.", "jitter_net."))
+                          for k in fresh),
+            f"GF graft: entries kept fresh outside the jitter head: {fresh}")
+    launches = {}
+    for recipe, entry, kind in (("gf_br", gf_br, "gf_da"),
+                                ("gf_br_center_refine", gf_br_center_refine,
+                                 "gf_da_jitter")):
+        log = tmp / f"{recipe}_log"
+        args = ["--data_root", str(scans), "--source_data_root",
+                str(virtual), "--train_split", "all", "--val_split", "all",
+                "--log_dir", str(log), "--device", "cuda", "--batch_size",
+                str(B), "--max_epoch", "1", "--val_freq", "1"]
+        if kind == "gf_da_jitter":
+            args += ["--checkpoint_path",
+                     str(tmp / "gf_br_log/ckpt_epoch_last.tar")]
+        reset(counters)
+        t0 = time.perf_counter()
+        entry.main(args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[recipe] = read_counts(counters)
+        print(f"[training path: {recipe}] {recipe}.main: {steps} steps of"
+              f" {B} + {B} scenes + one evaluation in {secs:.1f} s;"
+              f" launches {launches[recipe]}")
+        check_counts(recipe, launches[recipe], kind, 2 * steps + evals,
+                     steps)
+        rows = [json.loads(line) for line in
+                (log / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in rows if "loss" in r]
+        maps = [r["mAP"] for r in rows if "mAP" in r]
+        evals_logged = (log / "Eval_mAP.txt").read_text().splitlines()
+        require(len(losses) == 1 and len(maps) == 1 and len(evals_logged)
+                == 1 and all(map(math.isfinite, losses + maps)),
+                f"{recipe}: loss {losses}, mAP {maps}, Eval_mAP.txt"
+                f" {evals_logged}")
+        print(f"  epoch loss {losses[0]:.4f} (da_loss"
+              f" {rows[0]['da_loss']:.4f}), eval mAP@0.25 {maps[0]:.4f}")
+        if kind == "gf_da_jitter":
+            restores = [line.split("] ", 1)[1] for line in
+                        (log / "log_train.txt").read_text().splitlines()
+                        if "partial restore" in line]
+            require(restores == GF_GRAFT_LINES,
+                    f"GF BR -> CenterRefine graft: {restores}, expected"
+                    f" {GF_GRAFT_LINES}")
+            print("  BR grafted into CenterRefine: params "
+                  + "; running statistics ".join(restores)
+                  + f" (the fresh ones: the jitter head's {len(fresh)})")
+    results = evaluate.main([
+        "--model", "groupfree", "--checkpoint_path",
+        str(tmp / "gf_br_center_refine_log/ckpt_epoch_last.tar"),
+        "--data_root", str(scans), "--split", "all", "--batch_size", str(B),
+        "--device", "cuda"])
+    require(all(math.isfinite(m["mAP"]) for m in results.values()),
+            "evaluate --model groupfree on the CenterRefine checkpoint:"
+            " non-finite mAP")
+
+    def first_batch(root, split):
+        ds = DetectionDataset(cfg, root, split=split, num_points=N_GF,
+                              use_height=False, augment=True,
+                              center_jitter=0.1, gf_labels=True)
+        return common.to_device(next(iter(DetectionDataLoader(
+            ds, B, shuffle=False, prefetch=0))), "cuda")
+
+    # as `groupfree._make_datasets`: both domains jittered
+    batches = [first_batch(virtual, "train_aug"), first_batch(scans, "all")]
+    flags = gf_flags()
+    loss_kw = groupfree.loss_kwargs(flags)
+    bnm = flags.bn_momentum
+    epoch = 30
+    for recipe, kind in (("br", "da"), ("br_center_refine", "da_jitter")):
+        jitter = kind == "da_jitter"
+        torch.manual_seed(0)
+        model = groupfree.build_model(flags, cfg, kind).cuda()
+        opt = common.make_gf_optimizer(
+            model, common.make_gf_schedule(flags.learning_rate, flags, steps),
+            common.make_gf_schedule(flags.decoder_learning_rate, flags,
+                                    steps), flags.weight_decay,
+            flags.clip_norm)
+        step = groupfree.make_da_train_step(model, opt, cfg, loss_kw,
+                                            jitter=jitter)
+
+        def run():
+            return step(*batches, bnm, epoch)
+
+        for _ in range(2):
+            run()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(run, reps=10, warmup=0)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        aux = run()
+        require(math.isfinite(aux["loss"].item()),
+                f"GF {recipe} step loss not finite")
+        print(f"[da step] GroupFree3D {recipe} B={B}+{B} N={N_GF} (CLI"
+              f" defaults: 6 decoder layers, 256 queries, AdamW, clip 0.1,"
+              f" BN momentum {bnm}; epoch {epoch}): {ms:.3f} ms per step"
+              f" (median of 10 after 2 warm-ups), {2 * B / ms * 1e3:.1f}"
+              f" scenes/s, peak {peak_gb:.2f} GiB, loss"
+              f" {aux['loss'].item():.4f}  | {header}")
+
+        def loss_fn(eps):
+            if jitter:
+                return gf_losses.get_loss_DA_jitter(*eps, epoch, cfg,
+                                                    **loss_kw)[0]
+            return gf_losses.get_loss_DA(*eps, cfg, **loss_kw)[0]
+
+        phases = step_phases(model, opt, loss_fn, batches, bnm, jitter)
+        print("  phases (median of 5, CUDA events): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in phases.items()))
+        dev_ms = profile_steps(run, f"GF {recipe} steps")
+        print(f"  device busy {dev_ms / ms:.3f} of the unprofiled step"
+              f" ({dev_ms:.3f} of {ms:.3f} ms)")
+
+        state = copy.deepcopy(model.state_dict())
+        opt_state = copy.deepcopy(opt.state_dict())
+        after = []
+        for _ in range(2):
+            model.load_state_dict(state)
+            opt.load_state_dict(copy.deepcopy(opt_state))
+            torch.manual_seed(1)
+            run()
+            after.append([p.detach().clone() for p in model.parameters()])
+        differ = sum(not torch.equal(a, b) for a, b in zip(*after))
+        print(f"[determinism] GroupFree3D {recipe}: two steps from one state"
+              f" and pair of batches: {differ} of {len(after[0])} parameter"
+              " tensors differ bitwise")
+        del model, opt, step, state, opt_state, after
+    return launches
+
+
 def gf_learning_check(tmp, counters):
     """GF FSB through ``gf_fsb.main`` on the shapefix train split (40
     scans; its 12-scan val), at the JAX package's shapefix run's
@@ -1464,10 +1717,19 @@ def main() -> int:
     kernels = (fps.KERNEL, bq.KERNEL, grouping.KERNEL)
     counters = kernels + (grouping.LOCALIZE,)
 
+    # each phase's seconds, printed at the end
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - last[0]
+        last[0] = now
+
     # 1. build
     t0 = time.perf_counter()
     logs = _build.build_all(kernels)
     print(f"[build] {time.perf_counter() - t0:.1f} s")
+    lap("build")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1581,12 +1843,14 @@ def main() -> int:
     gf_scans = pathlib.Path(tmp.name) / "gf_scans"
     write_synthetic_scans(gf_scans, cfg, num_scans=NUM_SCANS, seed=2,
                           points_per_object=5500, floor_points=8000)
-    gf_fps, gf_bq, gf_group, gf_local = gf_kernel_phase(gf_scans, cfg, fps,
-                                                        bq, grouping)
+    gf_fps, gf_bq, gf_group, gf_local, gf_local_bwd = gf_kernel_phase(
+        gf_scans, cfg, fps, bq, grouping)
     fps_records.append(gf_fps)
-    bq_records.append(gf_bq)
+    bq_records += gf_bq
     group_fwd += gf_group
     local_fwd += gf_local
+    local_bwd += gf_local_bwd
+    lap("kernels")
     if args.kernels_only:
         print(json.dumps({"kernels_only": {
             "fps": fps_records, "fps_floor_us": {
@@ -1630,6 +1894,7 @@ def main() -> int:
         print(f"  device busy {dev_ms / fwd_ms:.3f} of the unprofiled"
               f" forward")
     del model, out
+    lap("votenet serving")
 
     # 4. the training paths: FSB, then WSB, BR and BR+CenterRefine on a
     # virtual-scene source fixture (scene_aug names under a path holding
@@ -1638,19 +1903,36 @@ def main() -> int:
     # gate
     paths = {"serving": serving}
     paths["training"] = train_phase(scans, tmp.name, cfg, counters, header)
+    lap("votenet fsb")
     virtual = pathlib.Path(tmp.name) / "obj_aug"
     write_synthetic_scans(virtual, cfg, num_scans=NUM_SCANS, seed=1,
                           prefix="scene_aug", points_per_object=4500,
                           floor_points=8000)
     paths.update(recipe_phase(scans, virtual, tmp.name, counters))
+    lap("votenet recipes")
     da_step_phase(scans, virtual, cfg, header)
+    lap("votenet da steps")
     gate_phase(tmp.name, counters)
+    lap("checkpoint gate")
 
     # 7. GroupFree3D: serving, FSB and WSB, and the learning check
     paths["gf_serving"] = gf_serving_phase(gf_scans, tmp.name, cfg, counters,
                                            header)
+    lap("gf serving")
     paths.update(gf_train_phase(gf_scans, tmp.name, cfg, counters, header))
+    lap("gf fsb/wsb")
+    # the DA recipes' source: 16 virtual scans of 52000 points (scene_aug
+    # names under a path holding "obj", as VoteNet's), the GF fixture the
+    # target
+    gf_virtual = pathlib.Path(tmp.name) / "gf_virtual" / "obj_aug"
+    write_synthetic_scans(gf_virtual, cfg, num_scans=NUM_SCANS, seed=3,
+                          prefix="scene_aug", points_per_object=5500,
+                          floor_points=8000)
+    paths.update(gf_da_phase(gf_scans, gf_virtual, tmp.name, cfg, counters,
+                             header))
+    lap("gf br/center refine")
     gf_learning_check(tmp.name, counters)
+    lap("gf learning check")
     tmp.cleanup()
 
     def by_path(name):
@@ -1688,6 +1970,8 @@ def main() -> int:
         require(all(k["launches_by_path"][p] > 0
                     for p in TRAINING + GF_TRAINING),
                 f"{k['name']}: not launched on every training path")
+    print("[seconds] " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+          + f"; total {sum(laps.values()):.1f}")
     print(header)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {

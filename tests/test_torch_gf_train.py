@@ -25,9 +25,9 @@ width 96), dropout 0 so that a train step is deterministic.
 * `gf_fsb.main` trains two epochs on a 2-scan fixture with
   ``--device cpu``, evaluates, writes checkpoints that `evaluate --model
   groupfree` loads, and resumes at the next epoch with the optimizer's
-  state and counts; `gf_wsb.main` trains an epoch; BR is refused, and so
-  are the unported flags and a run without a card unless the CPU is
-  asked for.
+  state and counts; `gf_wsb.main` trains an epoch; the unported flags
+  are refused, and so is a run of any recipe without a card unless the
+  CPU is asked for.
 * `evaluate --model groupfree --device cpu` on a checkpoint written by
   the JAX package's `save_checkpoint` (its init, the last head made to
   find the objects of a 4-scan fixture; JAX mAP@0.25 above 0.02): mAP
@@ -339,12 +339,14 @@ def test_gf_refuses_unported_flags(scans, tmp_path, extra):
                     + ["--device", "cpu", *extra])
 
 
-def test_gf_refuses_br_and_needs_cuda(scans, tmp_path, monkeypatch):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        groupfree.main("br", _gf_args(scans, tmp_path / "log", 1))
+@pytest.mark.parametrize("recipe", groupfree.RECIPES)
+def test_gf_recipes_need_cuda(scans, tmp_path, monkeypatch, recipe):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = _gf_args(scans, tmp_path / "log", 1)
+    if recipe in ("br", "br_center_refine"):
+        args += ["--source_data_root", str(scans)]
     with pytest.raises(RuntimeError, match="--device cpu"):
-        gf_fsb.main(_gf_args(scans, tmp_path / "log", 1))
+        groupfree.main(recipe, args)
 
 
 def _jax_gf_checkpoint(setup, path):
@@ -385,6 +387,20 @@ def _blob_scans(root, cfg, cls):
     return root
 
 
+def lamp_heads(params, lamp):
+    """In place: every head at a tenth of its residuals, the last one
+    made to call every query a `lamp` of the mean size."""
+    for name in ("proposal_head",
+                 *(f"prediction_heads_{i}" for i in range(LAYERS))):
+        for head in ("center_residual", "size_residual",
+                     "heading_residual"):
+            for leaf in params[name][head].values():
+                leaf *= 0.1
+    last = params[f"prediction_heads_{LAYERS - 1}"]
+    last["sem_cls"]["bias"][lamp] += 8.0
+    last["size_class"]["bias"][lamp] += 8.0
+
+
 def test_evaluate_groupfree_scores_a_jax_checkpoint(setup, tmp_path,
                                                      capsys):
     """The JAX init with its last head set to call every query a lamp of
@@ -398,16 +414,7 @@ def test_evaluate_groupfree_scores_a_jax_checkpoint(setup, tmp_path,
     lamp = cfg.type2class["lamp"]
     scans = _blob_scans(tmp_path / "scans", cfg, lamp)
     variables = jax.tree_util.tree_map(np.array, setup["variables"])
-    params = variables["params"]
-    for name in ("proposal_head",
-                 *(f"prediction_heads_{i}" for i in range(LAYERS))):
-        for head in ("center_residual", "size_residual",
-                     "heading_residual"):
-            for leaf in params[name][head].values():
-                leaf *= 0.1
-    last = params[f"prediction_heads_{LAYERS - 1}"]
-    last["sem_cls"]["bias"][lamp] += 8.0
-    last["size_class"]["bias"][lamp] += 8.0
+    lamp_heads(variables["params"], lamp)
     ckpt = _jax_gf_checkpoint(dict(variables=variables),
                               tmp_path / "gf.msgpack")
     args = ["--model", "groupfree", "--checkpoint_path", str(ckpt),
