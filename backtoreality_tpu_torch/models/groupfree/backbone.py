@@ -3,39 +3,47 @@
 
 Counterpart of ``backtoreality_tpu/models/groupfree/backbone.py``: the
 4 x SA + 2 x FP topology of VoteNet's backbone with a width multiplier,
-fp2 emitting 288 channels (the transformer's width). The bf16
-``f32_tail`` option is not ported.
+fp2 emitting 288 channels (the transformer's width). The stages compute
+in `dtype` but for the last `f32_tail`, in float32, as VoteNet's
+(`models.votenet.backbone.stage_dtype`).
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
+from backtoreality_tpu_torch.models.votenet.backbone import stage_dtype
 from backtoreality_tpu_torch.nn import FPModule, SAModuleVotes
 
 
 class GFBackbone(nn.Module):
     def __init__(self, input_feature_dim: int = 0, width: int = 1,
                  query_mode: str = "stratified",
-                 fps_candidates: int | None = None):
+                 fps_candidates: int | None = None,
+                 dtype: torch.dtype | None = None, f32_tail: int = 0):
         super().__init__()
         w = width
         kw = dict(query_mode=query_mode)
+
+        def dt(idx):
+            return stage_dtype(dtype, f32_tail, idx)
+
         self.sa1 = SAModuleVotes(
             npoint=2048, radius=0.2, nsample=64,
             in_features=input_feature_dim, mlp=[64 * w] * 2 + [128 * w],
-            fps_candidates=fps_candidates, **kw)
+            fps_candidates=fps_candidates, dtype=dt(0), **kw)
         self.sa2 = SAModuleVotes(
             npoint=1024, radius=0.4, nsample=32, in_features=128 * w,
-            mlp=[128 * w] * 2 + [256 * w], **kw)
+            mlp=[128 * w] * 2 + [256 * w], dtype=dt(1), **kw)
         self.sa3 = SAModuleVotes(
             npoint=512, radius=0.8, nsample=16, in_features=256 * w,
-            mlp=[128 * w] * 2 + [256 * w], **kw)
+            mlp=[128 * w] * 2 + [256 * w], dtype=dt(2), **kw)
         self.sa4 = SAModuleVotes(
             npoint=256, radius=1.2, nsample=16, in_features=256 * w,
-            mlp=[128 * w] * 2 + [256 * w], **kw)
-        self.fp1 = FPModule(512 * w, mlp=[256 * w, 256 * w])
-        self.fp2 = FPModule(512 * w, mlp=[256 * w, 288])
+            mlp=[128 * w] * 2 + [256 * w], dtype=dt(3), **kw)
+        self.fp1 = FPModule(512 * w, mlp=[256 * w, 256 * w], dtype=dt(4))
+        self.fp2 = FPModule(512 * w, mlp=[256 * w, 288], dtype=dt(5))
 
     def forward(self, pointcloud, end_points=None):
         """pointcloud (B, N, 3 + input_feature_dim). Returns end_points

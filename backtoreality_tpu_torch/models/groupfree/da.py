@@ -14,7 +14,8 @@ The heads sit under the JAX package's names (``da_heads``, ``ctjt_head``,
 ``jitter_net``), so `bridge.state_dict_from_jax` maps every leaf and
 `train.common.make_gf_optimizer` keeps them out of the decoder's group.
 The decoder loop is `GroupFreeDetector.forward`'s; the heads come in
-through its hooks.
+through its hooks. The heads compute in the model's `dtype`, as in the
+JAX package (the jitter net too, unlike VoteNet's).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from backtoreality_tpu_torch.models.groupfree.detector import \
     GroupFreeDetector
 from backtoreality_tpu_torch.models.votenet.da import (_ConvBNStack,
                                                        grad_reverse)
-from backtoreality_tpu_torch.nn import SAModuleCenters
+from backtoreality_tpu_torch.nn import Dense, SAModuleCenters
 from backtoreality_tpu_torch.nn.norm import BatchNorm
 
 
@@ -40,11 +41,12 @@ class CALayer(nn.Module):
 
     num_points: N of the inputs, which fixes the BatchNorm's width."""
 
-    def __init__(self, channel: int, num_points: int, reduction: int = 8):
+    def __init__(self, channel: int, num_points: int, reduction: int = 8,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         squeezed = channel // reduction
-        self.Dense = nn.ModuleList([nn.Linear(channel, squeezed),
-                                    nn.Linear(squeezed, channel)])
+        self.Dense = nn.ModuleList([Dense(channel, squeezed, dtype=dtype),
+                                    Dense(squeezed, channel, dtype=dtype)])
         self.BatchNorm = nn.ModuleList([BatchNorm(num_points * channel)])
 
     def forward(self, x):
@@ -57,11 +59,11 @@ class CALayer(nn.Module):
 class _GFDAHeads(nn.Module):
     """The global (seed features) and local (last query) discriminators."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype | None = None):
         super().__init__()
-        self.global_netD1 = _ConvBNStack(288, (256, 128))
-        self.global_netD2 = nn.Linear(128, 2)
-        self.decoder_netD = _ConvBNStack(288, (128, 128), out=1)
+        self.global_netD1 = _ConvBNStack(288, (256, 128), dtype=dtype)
+        self.global_netD2 = Dense(128, 2, dtype=dtype)
+        self.decoder_netD = _ConvBNStack(288, (128, 128), out=1, dtype=dtype)
 
     def global_pred(self, seed_features):
         g = self.global_netD1(grad_reverse(seed_features))
@@ -74,9 +76,9 @@ class _GFDAHeads(nn.Module):
 class GroupFreeDetectorDA(GroupFreeDetector):
     """`GroupFreeDetector_DA`: the plain graph plus `_GFDAHeads`."""
 
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.da_heads = _GFDAHeads()
+    def __init__(self, *args, dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, dtype=dtype, **kwargs)
+        self.da_heads = _GFDAHeads(dtype)
 
     def _last_query(self, end_points, query):
         end_points["last_local_d_pred"] = self.da_heads.local_pred(query)
@@ -95,13 +97,16 @@ class GroupFreeDetectorDAJitter(GroupFreeDetectorDA):
     (B, K))."""
 
     def __init__(self, num_class: int, *args,
-                 query_mode: str = "stratified", **kwargs):
-        super().__init__(num_class, *args, query_mode=query_mode, **kwargs)
+                 query_mode: str = "stratified",
+                 dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(num_class, *args, query_mode=query_mode,
+                         dtype=dtype, **kwargs)
         self.num_class = num_class
         self.ctjt_head = SAModuleCenters(
             radius=0.8, nsample=16, in_features=288, mlp=[128],
-            query_mode=query_mode, normalize_xyz=True)
-        self.jitter_net = _ConvBNStack(128 + num_class, (64,), out=3)
+            query_mode=query_mode, normalize_xyz=True, dtype=dtype)
+        self.jitter_net = _ConvBNStack(128 + num_class, (64,), out=3,
+                                       dtype=dtype)
 
     def _before_queries(self, end_points, center_label, sem_cls_label):
         feats = self.ctjt_head(end_points["sa2_xyz"],

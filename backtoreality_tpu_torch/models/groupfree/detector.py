@@ -6,7 +6,11 @@ num_decoder_layers x (decoder layer + per-layer PredictHead), with
 base_xyz and base_size detached between layers and per-layer learned
 position embeddings added to Q/K/V. The lists of per-layer modules are
 ``nn.ModuleList``s, which `bridge` maps from the JAX package's
-``decoder_0``, ``decoder_1``, ... names.
+``decoder_0``, ``decoder_1``, ... names. As in the JAX package, the
+backbone (its last `f32_tail` stages in float32), KPS's scorer, the query
+and key projections, the position embeddings and the decoder compute in
+`dtype`; the box heads in `head_dtype`, which the JAX package's
+`build_model` never sets (None: the parameters' dtype, float32).
 
 The domain-adaptation models (`da.py`) add their heads through two hooks
 of `forward`: `_before_queries` (the jitter head, on the backbone's
@@ -26,6 +30,7 @@ from backtoreality_tpu_torch.models.groupfree.modules import (
     general_sample)
 from backtoreality_tpu_torch.models.groupfree.transformer import \
     TransformerDecoderLayer
+from backtoreality_tpu_torch.nn import Dense
 from backtoreality_tpu_torch.ops import top_k_indices
 
 POSITION_EMBEDDINGS = {"none": 0, "xyz_learned": 3, "loc_learned": 6}
@@ -41,7 +46,9 @@ class GroupFreeDetector(nn.Module):
                  self_position_embedding: str = "xyz_learned",
                  cross_position_embedding: str = "xyz_learned",
                  query_mode: str = "stratified",
-                 fps_candidates: int | None = None):
+                 fps_candidates: int | None = None,
+                 dtype: torch.dtype | None = None,
+                 head_dtype: torch.dtype | None = None, f32_tail: int = 0):
         super().__init__()
         if sampling not in ("kps", "fps"):
             raise NotImplementedError(f"sampling {sampling!r}")
@@ -55,31 +62,34 @@ class GroupFreeDetector(nn.Module):
         self.cross_position_embedding = cross_position_embedding
         self.backbone_net = GFBackbone(
             input_feature_dim=input_feature_dim, width=width,
-            query_mode=query_mode, fps_candidates=fps_candidates)
+            query_mode=query_mode, fps_candidates=fps_candidates,
+            dtype=dtype, f32_tail=f32_tail)
         if sampling == "kps":
-            self.points_obj_cls = PointsObjClsModule(288)
+            self.points_obj_cls = PointsObjClsModule(288, dtype=dtype)
         head_kw = dict(num_class=num_class, num_heading_bin=num_heading_bin,
                        num_size_cluster=num_size_cluster,
-                       mean_size_arr=mean_size_arr, seed_feat_dim=288)
+                       mean_size_arr=mean_size_arr, seed_feat_dim=288,
+                       dtype=head_dtype)
         self.proposal_head = PredictHead(**head_kw)
         if num_decoder_layers <= 0:
             return
-        self.decoder_key_proj = nn.Linear(288, 288)
-        self.decoder_query_proj = nn.Linear(288, 288)
+        self.decoder_key_proj = Dense(288, 288, dtype=dtype)
+        self.decoder_query_proj = Dense(288, 288, dtype=dtype)
         layers = range(num_decoder_layers)
         if self_position_embedding != "none":
             self.decoder_self_posembeds = nn.ModuleList(
                 PositionEmbeddingLearned(
-                    POSITION_EMBEDDINGS[self_position_embedding], 288)
+                    POSITION_EMBEDDINGS[self_position_embedding], 288, dtype)
                 for _ in layers)
         if cross_position_embedding != "none":
             self.decoder_cross_posembeds = nn.ModuleList(
                 PositionEmbeddingLearned(
-                    POSITION_EMBEDDINGS[cross_position_embedding], 288)
+                    POSITION_EMBEDDINGS[cross_position_embedding], 288,
+                    dtype)
                 for _ in layers)
         self.decoder = nn.ModuleList(
             TransformerDecoderLayer(288, nhead, dim_feedforward,
-                                    dropout_rate) for _ in layers)
+                                    dropout_rate, dtype) for _ in layers)
         self.prediction_heads = nn.ModuleList(
             PredictHead(**head_kw) for _ in layers)
 

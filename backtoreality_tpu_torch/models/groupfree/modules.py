@@ -4,7 +4,9 @@
 Counterpart of ``backtoreality_tpu/models/groupfree/modules.py``,
 channels-last, submodules named as there: the per-seed objectness scorer
 of KPS, the learned position embedding, FPS and index sampling of the
-queries, and the per-layer box head.
+queries, and the per-layer box head. Each computes in its `dtype` (None:
+the parameters'); the box head's seven output layers always in float32
+(float64 in the parity tests), as the JAX package's.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from torch import nn
 
 from backtoreality_tpu_torch import ops
-from backtoreality_tpu_torch.nn import BatchNorm, PointwiseMLP
+from backtoreality_tpu_torch.nn import BatchNorm, Dense, PointwiseMLP
 
 
 class PointsObjClsModule(PointwiseMLP):
@@ -24,19 +26,23 @@ class PointsObjClsModule(PointwiseMLP):
     (B, num_seed, C) -> (B, num_seed, 1) logits; ``dense0``, ``bn0``,
     ``dense1``, ``bn1`` and ``out``."""
 
-    def __init__(self, feature_dim: int = 288):
-        super().__init__(feature_dim, [feature_dim, feature_dim], 1)
+    def __init__(self, feature_dim: int = 288,
+                 dtype: torch.dtype | None = None):
+        super().__init__(feature_dim, [feature_dim, feature_dim], 1,
+                         dtype=dtype)
 
 
 class PositionEmbeddingLearned(nn.Module):
     """Learned absolute position embedding (`modules.py:47-63`): Linear
     (3 or 6 -> D, no bias) + BN + ReLU + Linear (D -> D)."""
 
-    def __init__(self, input_channel: int, num_pos_feats: int = 288):
+    def __init__(self, input_channel: int, num_pos_feats: int = 288,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.dense0 = nn.Linear(input_channel, num_pos_feats, bias=False)
+        self.dense0 = Dense(input_channel, num_pos_feats, bias=False,
+                            dtype=dtype)
         self.bn0 = BatchNorm(num_pos_feats)
-        self.dense1 = nn.Linear(num_pos_feats, num_pos_feats)
+        self.dense1 = Dense(num_pos_feats, num_pos_feats, dtype=dtype)
 
     def forward(self, xyz):
         return self.dense1(torch.relu(self.bn0(self.dense0(xyz))))
@@ -67,19 +73,19 @@ class PredictHead(nn.Module):
 
     def __init__(self, num_class: int, num_heading_bin: int,
                  num_size_cluster: int, mean_size_arr,
-                 seed_feat_dim: int = 288):
+                 seed_feat_dim: int = 288, dtype: torch.dtype | None = None):
         super().__init__()
         self.num_heading_bin = num_heading_bin
         self.num_size_cluster = num_size_cluster
         # float32, as the JAX head holds it (also under x64)
         self.mean_size_arr = np.asarray(mean_size_arr, np.float32)
         for i in range(2):
-            self.add_module(f"dense{i}", nn.Linear(seed_feat_dim,
-                                                   seed_feat_dim, bias=False))
+            self.add_module(f"dense{i}", Dense(seed_feat_dim, seed_feat_dim,
+                                               bias=False, dtype=dtype))
             self.add_module(f"bn{i}", BatchNorm(seed_feat_dim))
         nh, ns = num_heading_bin, num_size_cluster
         for name, out in zip(HEADS, (1, 3, nh, nh, ns, ns * 3, num_class)):
-            self.add_module(name, nn.Linear(seed_feat_dim, out))
+            self.add_module(name, Dense(seed_feat_dim, out))
 
     def forward(self, features, base_xyz, end_points, prefix=""):
         """features (B, K, C); base_xyz (B, K, 3)."""

@@ -6,7 +6,9 @@ Counterpart of ``Pointnet2Backbone`` in
 (2048/0.2/64 -> 1024/0.4/32 -> 512/0.8/16 -> 256/1.2/16) + 2 FP layers
 back to 1024 seeds @ 256 channels. ``Pointnet2BackboneJitter`` adds the
 centre-grouping head of the CenterRefine model (`backbone_module.py:
-136-262`). The bf16 ``f32_tail`` option is not ported.
+136-262`). The stages compute in `dtype` (None: the parameters', float32),
+but for the last `f32_tail` of them, which compute in float32
+(:func:`stage_dtype`).
 """
 
 from __future__ import annotations
@@ -18,27 +20,40 @@ from backtoreality_tpu_torch.nn import (FPModule, SAModuleCenters,
                                         SAModuleVotes)
 
 
+def stage_dtype(dtype: torch.dtype | None, f32_tail: int, idx: int):
+    """The compute dtype of backbone stage `idx` (0..5 over sa1..sa4, fp1,
+    fp2): the last `f32_tail` stages (fp2, fp1, sa4, ...) run in float32
+    whatever `dtype` (``Pointnet2Backbone._stage_dtype`` of the JAX
+    package); None is the parameters' dtype, float32."""
+    return None if 6 - idx <= f32_tail else dtype
+
+
 class Pointnet2Backbone(nn.Module):
     def __init__(self, input_feature_dim: int = 0,
                  query_mode: str = "stratified",
-                 fps_candidates: int | None = None):
+                 fps_candidates: int | None = None,
+                 dtype: torch.dtype | None = None, f32_tail: int = 0):
         super().__init__()
         kw = dict(query_mode=query_mode)
+
+        def dt(idx):
+            return stage_dtype(dtype, f32_tail, idx)
+
         self.sa1 = SAModuleVotes(
             npoint=2048, radius=0.2, nsample=64,
             in_features=input_feature_dim, mlp=[64, 64, 128],
-            fps_candidates=fps_candidates, **kw)
+            fps_candidates=fps_candidates, dtype=dt(0), **kw)
         self.sa2 = SAModuleVotes(
             npoint=1024, radius=0.4, nsample=32, in_features=128,
-            mlp=[128, 128, 256], **kw)
+            mlp=[128, 128, 256], dtype=dt(1), **kw)
         self.sa3 = SAModuleVotes(
             npoint=512, radius=0.8, nsample=16, in_features=256,
-            mlp=[128, 128, 256], **kw)
+            mlp=[128, 128, 256], dtype=dt(2), **kw)
         self.sa4 = SAModuleVotes(
             npoint=256, radius=1.2, nsample=16, in_features=256,
-            mlp=[128, 128, 256], **kw)
-        self.fp1 = FPModule(256 + 256, mlp=[256, 256])
-        self.fp2 = FPModule(256 + 256, mlp=[256, 256])
+            mlp=[128, 128, 256], dtype=dt(3), **kw)
+        self.fp1 = FPModule(256 + 256, mlp=[256, 256], dtype=dt(4))
+        self.fp2 = FPModule(256 + 256, mlp=[256, 256], dtype=dt(5))
 
     def forward(self, pointcloud, end_points=None):
         """pointcloud: (B, N, 3 + input_feature_dim). Returns end_points
@@ -88,16 +103,19 @@ class Pointnet2BackboneJitter(nn.Module):
 
     def __init__(self, num_class: int = 22, input_feature_dim: int = 0,
                  query_mode: str = "stratified",
-                 fps_candidates: int | None = None):
+                 fps_candidates: int | None = None,
+                 dtype: torch.dtype | None = None, f32_tail: int = 0):
         super().__init__()
         self.num_class = num_class
         self.backbone = Pointnet2Backbone(
             input_feature_dim=input_feature_dim, query_mode=query_mode,
-            fps_candidates=fps_candidates)
+            fps_candidates=fps_candidates, dtype=dtype, f32_tail=f32_tail)
         # 64 centres at most, r=0.8, ONE mlp layer 256(+3 xyz) -> 128,
-        # no radius normalization (`backbone_module.py:187-195`)
+        # no radius normalization (`backbone_module.py:187-195`); in
+        # `dtype`, whatever the tail
         self.ctjt = SAModuleCenters(radius=0.8, nsample=16, in_features=256,
-                                    mlp=[128], query_mode=query_mode)
+                                    mlp=[128], query_mode=query_mode,
+                                    dtype=dtype)
 
     def forward(self, pointcloud, center_label, sem_cls_label,
                 end_points=None):

@@ -13,7 +13,9 @@ gradient reversal:
   (150->128->128->1 + sigmoid).
 
 Submodules carry the JAX package's names, so `bridge.state_dict_from_jax`
-maps every leaf. ``VoteNetDAJitter2`` is not ported.
+maps every leaf. The domain heads and the jitter discriminator compute in
+the model's `dtype`, the jitter-prediction net in `head_dtype`, as in the
+JAX package. ``VoteNetDAJitter2`` is not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from torch import nn
 from backtoreality_tpu_torch.models.votenet.backbone import \
     Pointnet2BackboneJitter
 from backtoreality_tpu_torch.models.votenet.votenet import VoteNet
+from backtoreality_tpu_torch.nn import Dense
 from backtoreality_tpu_torch.nn.norm import BatchNorm
 
 
@@ -46,19 +49,22 @@ def grad_reverse(x: torch.Tensor) -> torch.Tensor:
 
 class _ConvBNStack(nn.Module):
     """(Linear without bias + BN + ReLU) per hidden width, then an
-    optional biased Linear ``out``; PyTorch's default Linear init, as the
-    JAX package's ``torch_default_kernel_init``."""
+    optional biased Linear ``out``, all computing in `dtype`; PyTorch's
+    default Linear init, as the JAX package's
+    ``torch_default_kernel_init``."""
 
     def __init__(self, in_features: int, hidden: tp.Sequence[int],
-                 out: int | None = None):
+                 out: int | None = None, dtype: torch.dtype | None = None):
         super().__init__()
         self.num = len(hidden)
         width = in_features
         for i, ch in enumerate(hidden):
-            self.add_module(f"dense{i}", nn.Linear(width, ch, bias=False))
+            self.add_module(f"dense{i}",
+                            Dense(width, ch, bias=False, dtype=dtype))
             self.add_module(f"bn{i}", BatchNorm(ch))
             width = ch
-        self.out = nn.Linear(width, out) if out is not None else None
+        self.out = (Dense(width, out, dtype=dtype) if out is not None
+                    else None)
 
     def forward(self, x):
         for i in range(self.num):
@@ -70,11 +76,11 @@ class _ConvBNStack(nn.Module):
 class _DAHeads(nn.Module):
     """Global + local domain discriminators shared by both variants."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype | None = None):
         super().__init__()
-        self.global_netD1 = _ConvBNStack(256, (256, 128))
-        self.global_netD2 = nn.Linear(128, 2)
-        self.local_netD = _ConvBNStack(128, (128, 128), out=1)
+        self.global_netD1 = _ConvBNStack(256, (256, 128), dtype=dtype)
+        self.global_netD2 = Dense(128, 2, dtype=dtype)
+        self.local_netD = _ConvBNStack(128, (128, 128), out=1, dtype=dtype)
 
     def forward(self, end_points):
         g = self.global_netD1(grad_reverse(end_points["seed_features"]))
@@ -89,9 +95,9 @@ class _DAHeads(nn.Module):
 class VoteNetDA(VoteNet):
     """`VoteNet_DA` (`votenet_DA.py:47-176`): VoteNet + `_DAHeads`."""
 
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.da_heads = _DAHeads()
+    def __init__(self, *args, dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, dtype=dtype, **kwargs)
+        self.da_heads = _DAHeads(dtype)
 
     def forward(self, point_clouds):
         return self.da_heads(super().forward(point_clouds))
@@ -104,16 +110,23 @@ class VoteNetDAJitter(VoteNetDA):
     def __init__(self, num_class: int, num_heading_bin: int,
                  num_size_cluster: int, mean_size_arr,
                  input_feature_dim: int = 0, query_mode: str = "stratified",
-                 fps_candidates: int | None = None, **kwargs):
+                 fps_candidates: int | None = None,
+                 dtype: torch.dtype | None = None,
+                 head_dtype: torch.dtype | None = None, f32_tail: int = 0,
+                 **kwargs):
         backbone = Pointnet2BackboneJitter(
             num_class=num_class, input_feature_dim=input_feature_dim,
-            query_mode=query_mode, fps_candidates=fps_candidates)
+            query_mode=query_mode, fps_candidates=fps_candidates,
+            dtype=dtype, f32_tail=f32_tail)
         super().__init__(num_class, num_heading_bin, num_size_cluster,
                          mean_size_arr, input_feature_dim=input_feature_dim,
-                         query_mode=query_mode, backbone=backbone, **kwargs)
+                         query_mode=query_mode, dtype=dtype,
+                         head_dtype=head_dtype, backbone=backbone, **kwargs)
         width = 128 + num_class
-        self.jitter_netD = _ConvBNStack(width, (128, 128), out=1)
-        self.jitter_net = _ConvBNStack(width, (64,), out=3)
+        self.jitter_netD = _ConvBNStack(width, (128, 128), out=1,
+                                        dtype=dtype)
+        self.jitter_net = _ConvBNStack(width, (64,), out=3,
+                                       dtype=head_dtype)
 
     def forward(self, point_clouds, center_label, sem_cls_label):
         """center_label (B, K, 3) and sem_cls_label (B, K): the (weak)

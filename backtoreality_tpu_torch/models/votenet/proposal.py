@@ -59,11 +59,12 @@ class ProposalModule(PointwiseMLP):
     def __init__(self, num_class: int, num_heading_bin: int,
                  num_size_cluster: int, mean_size_arr,
                  num_proposal: int = 256, sampling: str = "vote_fps",
-                 seed_feat_dim: int = 256, query_mode: str = "stratified"):
+                 seed_feat_dim: int = 256, query_mode: str = "stratified",
+                 dtype: torch.dtype | None = None):
         out_dim = (2 + 3 + num_heading_bin * 2 + num_size_cluster * 4
                    + num_class)
         # no bias before BN (see voting.py)
-        super().__init__(128, [128, 128], out_dim)
+        super().__init__(128, [128, 128], out_dim, dtype=dtype)
         if sampling not in ("vote_fps", "seed_fps"):
             raise NotImplementedError(f"sampling {sampling!r} is not ported")
         self.num_proposal = num_proposal
@@ -75,7 +76,7 @@ class ProposalModule(PointwiseMLP):
         self.vote_aggregation = SAModuleVotes(
             npoint=num_proposal, radius=0.3, nsample=16,
             in_features=seed_feat_dim, mlp=[128, 128, 128],
-            query_mode=query_mode)
+            query_mode=query_mode, dtype=dtype)
 
     def forward(self, xyz, features, end_points):
         """xyz: vote positions (B, num_vote, 3); features (B, num_vote, C)."""

@@ -2,7 +2,10 @@
 
 Counterpart of ``backtoreality_tpu/models/votenet/votenet.py``:
 backbone -> hough voting (+ L2-normalized vote features,
-`votenet.py:93-94`) -> proposal module.
+`votenet.py:93-94`) -> proposal module. The backbone computes in `dtype`
+(its last `f32_tail` stages in float32), the voting and proposal heads in
+`head_dtype`; None is the parameters' dtype, float32. The JAX package's
+`build_model` never sets `head_dtype`: its heads stay float32 under bf16.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ class VoteNet(nn.Module):
                  vote_factor: int = 1, sampling: str = "vote_fps",
                  query_mode: str = "stratified",
                  fps_candidates: int | None = None,
+                 dtype: torch.dtype | None = None,
+                 head_dtype: torch.dtype | None = None, f32_tail: int = 0,
                  backbone: nn.Module | None = None):
         """`backbone` replaces the plain PointNet++ backbone (the
         CenterRefine model's has the jitter head)."""
@@ -30,14 +35,15 @@ class VoteNet(nn.Module):
         if backbone is None:
             backbone = Pointnet2Backbone(
                 input_feature_dim=input_feature_dim, query_mode=query_mode,
-                fps_candidates=fps_candidates)
+                fps_candidates=fps_candidates, dtype=dtype,
+                f32_tail=f32_tail)
         self.backbone_net = backbone
-        self.vgen = VotingModule(vote_factor, 256)
+        self.vgen = VotingModule(vote_factor, 256, dtype=head_dtype)
         self.pnet = ProposalModule(
             num_class=num_class, num_heading_bin=num_heading_bin,
             num_size_cluster=num_size_cluster, mean_size_arr=mean_size_arr,
             num_proposal=num_proposal, sampling=sampling,
-            query_mode=query_mode)
+            query_mode=query_mode, dtype=head_dtype)
 
     def forward(self, point_clouds):
         """point_clouds (B, N, 3+C). Returns the end_points dict."""

@@ -7,15 +7,18 @@ votes = seed + offset, vote features = seed features + residual.
 
 from __future__ import annotations
 
+import torch
+
 from backtoreality_tpu_torch.nn import PointwiseMLP
 
 
 class VotingModule(PointwiseMLP):
-    def __init__(self, vote_factor: int = 1, seed_feature_dim: int = 256):
+    def __init__(self, vote_factor: int = 1, seed_feature_dim: int = 256,
+                 dtype: torch.dtype | None = None):
         c = seed_feature_dim
         # no bias before BN: the JAX package folds the reference's
         # pre-BN conv bias into the BN running mean
-        super().__init__(c, [c, c], (3 + c) * vote_factor)
+        super().__init__(c, [c, c], (3 + c) * vote_factor, dtype=dtype)
         self.vote_factor = vote_factor
         self.seed_feature_dim = c
 

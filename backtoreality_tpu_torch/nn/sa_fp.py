@@ -15,6 +15,12 @@ Only what the ported models run is ported: the stratified query, xyz
 concatenated to the features (radius-normalized in `SAModuleVotes`; in
 `SAModuleCenters` when `normalize_xyz` is set, as GroupFree3D's jitter
 head sets it), and max pooling.
+
+Each module's MLP computes in its `dtype` (None: the parameters'). The
+grouping always sees the coordinates' float32: the JAX package
+concatenates xyz and the features before it groups them, which promotes
+bfloat16 features to float32 (exactly), and so the kernels take float32
+on a bfloat16 path too.
 """
 
 from __future__ import annotations
@@ -28,17 +34,27 @@ from backtoreality_tpu_torch import ops
 from backtoreality_tpu_torch.nn.mlp import SharedMLP
 
 
+def _as_xyz_dtype(features, xyz):
+    """`features` promoted to the coordinates' dtype (bfloat16 to float32),
+    as the JAX package's concatenation of the two does."""
+    if features is None:
+        return None
+    return features.to(torch.promote_types(features.dtype, xyz.dtype))
+
+
 class SAModuleVotes(nn.Module):
     """Set abstraction with external-indices support
     (`PointnetSAModuleVotes`, `pointnet2_modules.py:164-272`, with
     use_xyz and normalize_xyz on, max pooling).
 
-    in_features: width C of the input features (0 for none)."""
+    in_features: width C of the input features (0 for none).
+    dtype: the MLP's compute dtype (None: the parameters')."""
 
     def __init__(self, npoint: int, radius: float, nsample: int,
                  in_features: int, mlp: tp.Sequence[int],
                  query_mode: str = "stratified",
-                 fps_candidates: int | None = None):
+                 fps_candidates: int | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         if query_mode != "stratified":
             raise NotImplementedError(
@@ -47,14 +63,15 @@ class SAModuleVotes(nn.Module):
         self.radius = radius
         self.nsample = nsample
         self.fps_candidates = fps_candidates
-        self.mlp = SharedMLP(3 + in_features, mlp)
+        self.mlp = SharedMLP(3 + in_features, mlp, dtype=dtype)
 
     def _group(self, xyz, new_xyz, features):
         """Ball-query + group + localize: (B, npoint, nsample, 3[+C])."""
         idx, hit = ops.ball_query_stratified(
             xyz, new_xyz, self.radius, self.nsample, return_hit=True)
-        return ops.group_localize_stratified(xyz, features, new_xyz, idx,
-                                             hit, self.radius)
+        return ops.group_localize_stratified(
+            xyz, _as_xyz_dtype(features, xyz), new_xyz, idx, hit,
+            self.radius)
 
     def forward(self, xyz, features=None, inds=None):
         """xyz (B,N,3); features (B,N,C) or None; inds optional (B,npoint).
@@ -82,7 +99,8 @@ class SAModuleCenters(nn.Module):
 
     def __init__(self, radius: float, nsample: int, in_features: int,
                  mlp: tp.Sequence[int], query_mode: str = "stratified",
-                 normalize_xyz: bool = False):
+                 normalize_xyz: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         if query_mode != "stratified":
             raise NotImplementedError(
@@ -90,15 +108,15 @@ class SAModuleCenters(nn.Module):
         self.radius = radius
         self.nsample = nsample
         self.scale = radius if normalize_xyz else 1.0
-        self.mlp = SharedMLP(3 + in_features, mlp)
+        self.mlp = SharedMLP(3 + in_features, mlp, dtype=dtype)
 
     def forward(self, xyz, features, centers):
         """xyz (B,N,3); features (B,N,C); centers (B,M,3). Returns
         (B, M, mlp[-1]) features grouped at the centres."""
         idx, hit = ops.ball_query_stratified(
             xyz, centers, self.radius, self.nsample, return_hit=True)
-        grouped = ops.group_localize_stratified(xyz, features, centers, idx,
-                                                hit, self.scale)
+        grouped = ops.group_localize_stratified(
+            xyz, _as_xyz_dtype(features, xyz), centers, idx, hit, self.scale)
         return torch.amax(self.mlp(grouped), dim=2)
 
 
@@ -106,11 +124,15 @@ class FPModule(nn.Module):
     """Feature propagation (`PointnetFPModule`,
     `pointnet2_modules.py:454-514`): 3-NN inverse-distance interpolation
     of `known` features onto `unknown` positions, concat skip features,
-    SharedMLP. in_features: interpolated plus skip width."""
+    SharedMLP. in_features: interpolated plus skip width. The
+    interpolation's float32 weights promote bfloat16 features to float32,
+    and so does the concatenation, as in the JAX package; the MLP then
+    computes in `dtype`."""
 
-    def __init__(self, in_features: int, mlp: tp.Sequence[int]):
+    def __init__(self, in_features: int, mlp: tp.Sequence[int],
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.mlp = SharedMLP(in_features, mlp)
+        self.mlp = SharedMLP(in_features, mlp, dtype=dtype)
 
     def forward(self, unknown, known, unknown_feats, known_feats):
         """unknown (B,n,3); known (B,m,3); unknown_feats (B,n,C1) or None;

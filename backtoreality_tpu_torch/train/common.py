@@ -15,6 +15,7 @@ guard are not ported.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import logging
@@ -44,6 +45,36 @@ def resolve_device(name: str | None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def make_deterministic():
+    """Make every step bitwise repeatable, as the JAX package's steps are
+    (XLA's scatter-adds, no atomics): cuBLAS with a fixed workspace, and
+    ``torch.use_deterministic_algorithms``, under which the backwards of
+    the gathers take PyTorch's sorted scatter-add and any op without a
+    deterministic CUDA path raises, naming itself. cuBLAS reads
+    ``CUBLAS_WORKSPACE_CONFIG`` when it makes its first handle, so this
+    runs before any CUDA work; a value already set is kept (torch refuses
+    one that is not deterministic). The mode's NaN fill of every new
+    tensor is left off: no op here reads memory it did not write, and the
+    fill costs kernel time in every step (``chip_smoke.py`` times it)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+
+
+def compute_dtype(flags) -> torch.dtype | None:
+    """The model's compute dtype: bfloat16 with ``--bf16`` (float32
+    parameters and statistics), else None (the parameters' float32)."""
+    return torch.bfloat16 if flags.bf16 else None
+
+
+def recal_batches(flags) -> int:
+    """``--bn_recal_batches``, or by default 20 with ``--bf16`` and 0
+    without."""
+    if flags.bn_recal_batches is not None:
+        return flags.bn_recal_batches
+    return 20 if flags.bf16 else 0
 
 
 def to_device(batch: dict, device) -> dict:
@@ -330,6 +361,55 @@ def update(model, optimizer, bn_momentum, forward_loss) -> dict:
     loss.backward()
     optimizer.step()
     return scalars(aux)
+
+
+def make_recal_step(model, *, jitter=False, before=None):
+    """step(batch, bn_momentum): one train-mode forward under no_grad
+    that moves only the BN running statistics (BN recalibration, the JAX
+    package's ``make_recal_step``). With `jitter`, the model also takes
+    the batch's centre and class labels; `before`, when given, is called
+    ahead of each forward (GroupFree3D seeds its dropout there)."""
+
+    def step(batch, bn_momentum):
+        model.train()
+        set_bn_momentum(model, bn_momentum)
+        if before is not None:
+            before()
+        with torch.no_grad():
+            model(*model_args(batch, jitter))
+
+    return step
+
+
+def recalibrate_bn(loader, recal_step, device, num_batches: int,
+                   momentum: float = 0.2) -> int:
+    """Refresh the BN running statistics with `num_batches` train-mode
+    forwards over `loader` (from its start again while more are needed) at
+    `momentum`, as the JAX package's ``recalibrate_bn``. Returns the
+    batches run."""
+    done = 0
+    while done < num_batches:
+        for batch in loader:
+            recal_step(to_device(batch, device), momentum)
+            done += 1
+            if done >= num_batches:
+                break
+    return done
+
+
+@contextlib.contextmanager
+def buffers_kept(model: torch.nn.Module):
+    """On exit, every buffer of `model` (the BN running statistics) holds
+    its value from the entry again: an evaluation after a recalibration
+    leaves the training model's statistics as they were, as the JAX loop
+    recalibrates a copy of its state (``eval_state``)."""
+    saved = [b.detach().clone() for b in model.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, s in zip(model.buffers(), saved):
+                b.copy_(s)
 
 
 def fetch_aux_means(aux_hist) -> dict[str, float]:

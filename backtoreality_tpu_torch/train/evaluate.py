@@ -16,8 +16,15 @@ Checkpoints are the JAX package's msgpack checkpoints (gzipped or not),
 checkpoints of ``train/votenet.py``; ``common.load_weights`` tells them
 apart. A checkpoint must cover every entry of the graph asked for:
 one trained with another graph is refused rather than scored with
-fresh weights. Not ported yet: BN recalibration, the GroupFree3D DA
-graphs and ``--bf16``.
+fresh weights.
+
+``--bf16`` computes in bfloat16 over the float32 parameters (``--f32_tail
+N``: the backbone's last N stages in float32). Before scoring, the BN
+running statistics are recalibrated over ``--bn_recal_batches``
+train-mode batches (default 20 with ``--bf16``, else none) of
+``--train_data_root``'s ``--recal_split``, shuffled and augmented, as the
+training loops do before each evaluation: without a train root an
+implied recalibration is skipped with a warning, an explicit one exits.
 
 Usage:
   python -m backtoreality_tpu_torch.train.evaluate --model votenet \
@@ -29,6 +36,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import numpy as np
 import torch
@@ -82,6 +90,21 @@ def add_common_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--fps_candidates", type=int, default=None,
                         help="subset-FPS at SA1: sample from the first"
                              " K (pre-shuffled) points")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 model compute (f32 params/stats)")
+    parser.add_argument("--f32_tail", type=int, default=0,
+                        help="with --bf16: run the last N backbone"
+                             " stages (fp2, fp1, sa4, ...) in f32."
+                             " These stages carry <2%% of the HBM"
+                             " traffic but feed the classification"
+                             " heads, where bf16's quality deficit"
+                             " concentrates")
+    parser.add_argument("--bn_recal_batches", type=int, default=None,
+                        help="train-mode batches to refresh BN running"
+                             " stats before each eval (default 20 with"
+                             " --bf16, else 0): bf16 weight drift after"
+                             " the BN-momentum floor staleness-shifts"
+                             " frozen stats")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; pass cpu to run"
                              " on the CPU)")
@@ -107,7 +130,45 @@ def build_model(flags, cfg, kind: str = "plain") -> VoteNet:
         vote_factor=flags.vote_factor,
         sampling=flags.cluster_sampling,
         query_mode=flags.query_mode,
-        fps_candidates=flags.fps_candidates)
+        fps_candidates=flags.fps_candidates,
+        dtype=common.compute_dtype(flags),
+        f32_tail=flags.f32_tail)
+
+
+def _recalibrate(model, flags, cfg, device, use_height, jitter, gf):
+    """BN recalibration before scoring, with the JAX package's semantics
+    (`backtoreality_tpu/train/evaluate.py:132-200`)."""
+    num_batches = common.recal_batches(flags)
+    if num_batches <= 0:
+        return
+    if not flags.train_data_root:
+        if flags.bn_recal_batches is not None:
+            raise SystemExit(
+                "--bn_recal_batches > 0 requires --train_data_root"
+                " (recalibration draws train-mode batches)")
+        print("warning: BN recalibration implied by --bf16 but no"
+              " --train_data_root given; evaluating with the"
+              " checkpoint's frozen BN stats")
+        return
+    recal_ds = DetectionDataset(
+        cfg, flags.train_data_root, split=flags.recal_split,
+        num_points=flags.num_point, use_color=flags.use_color,
+        use_height=use_height, augment=True, gf_labels=gf)
+    recal_loader = DetectionDataLoader(recal_ds, flags.batch_size,
+                                       shuffle=True, drop_last=True)
+    if len(recal_loader) == 0:
+        # drop_last with fewer scans than a batch: nothing to draw
+        raise SystemExit(
+            f"BN recalibration loader is empty: {flags.train_data_root}"
+            f" split={flags.recal_split} has {len(recal_ds)} scans"
+            f" < batch_size {flags.batch_size}")
+    with contextlib.ExitStack() as stack:
+        before = (stack.enter_context(groupfree.recal_dropout(model))
+                  if gf else None)
+        step = common.make_recal_step(model, jitter=jitter, before=before)
+        done = common.recalibrate_bn(recal_loader, step, device,
+                                     num_batches)
+    print(f"recalibrated BN stats over {done} train batches")
 
 
 def _print_metrics(name, t, runs):
@@ -134,6 +195,7 @@ def main(argv=None):
     the seeds, and under "seeds" every seed's metrics dict. The prefix is
     "" for VoteNet, the scored head's (``last_`` or ``proposal_``) for
     GroupFree3D."""
+    common.make_deterministic()
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", choices=["votenet", "groupfree"],
                         default="votenet")
@@ -156,6 +218,13 @@ def main(argv=None):
     else:
         groupfree.add_flags(sub)
     sub.add_argument("--split", default="val")
+    sub.add_argument("--train_data_root", default=None,
+                     help="train split for BN recalibration"
+                          " (--bn_recal_batches; required for faithful"
+                          " --bf16 checkpoint eval: the training loops"
+                          " recalibrate stale BN stats before every"
+                          " in-loop eval)")
+    sub.add_argument("--recal_split", default="all")
     flags = sub.parse_args(rest)
     if not flags.checkpoint_path:
         raise SystemExit("--checkpoint_path is required")
@@ -176,7 +245,10 @@ def main(argv=None):
         conf_thresh = groupfree.GF_EVAL_CONFIG_DICT["conf_thresh"]
     # a leaf left at its fresh init would be scored as if trained
     common.restore_weights(model, flags.checkpoint_path, graph, log=print)
-    model.to(device).eval()
+    model.to(device)
+    _recalibrate(model, flags, cfg, device, use_height, jitter,
+                 pre.model == "groupfree")
+    model.eval()
 
     ds = DetectionDataset(
         cfg, flags.data_root, split=flags.split, num_points=flags.num_point,

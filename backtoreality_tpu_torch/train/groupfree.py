@@ -16,12 +16,21 @@ domain-adaptation criterion; both domains' centres are jittered. It runs
 on the CUDA card unless ``--device cpu`` is given, and raises if no card
 is present and the CPU was not asked for.
 
+Every step is bitwise repeatable (`common.make_deterministic`; the
+dropout masks are the global RNG's, seeded by ``--rng_seed``). With
+``--bf16`` the model computes in bfloat16 over float32 parameters and
+statistics (``--f32_tail N``: the backbone's last N stages in float32).
+Before each evaluation the BN running statistics are recalibrated over
+``--bn_recal_batches`` train-mode batches (default 20 with ``--bf16``),
+the dropout masks drawn from a generator of its own seeded alike for
+every batch (the JAX package passes one fixed key), and put back after
+the evaluation, as the JAX loop recalibrates a copy of its state.
+
 Flag names and defaults are the JAX package's (`train_GF_FSB.py:23-103`).
-Not ported, and so refused by the parser: ``--num_devices``, ``--bf16``,
-``--f32_tail``, ``--bn_recal_batches`` (and with it BN recalibration
-before evaluation), ``--multihost``, ``--guard_every_steps``,
-``--profile_dir``, ``--ram_cache_gb`` (the datasets keep their default
-RAM cache of 8 GiB) and ``--query_mode exact``.
+Not ported, and so refused by the parser: ``--num_devices``,
+``--multihost``, ``--guard_every_steps``, ``--profile_dir``,
+``--ram_cache_gb`` (the datasets keep their default RAM cache of 8 GiB)
+and ``--query_mode exact``.
 
 Usage:
   python -m backtoreality_tpu_torch.train.gf_fsb --data_root D \
@@ -37,6 +46,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import pathlib
 import time
 
@@ -50,13 +60,15 @@ from backtoreality_tpu_torch.eval import (APCalculator, parse_groundtruths,
 from backtoreality_tpu_torch.losses import groupfree as gf_losses
 from backtoreality_tpu_torch.models.groupfree import (
     GroupFreeDetector, GroupFreeDetectorDA, GroupFreeDetectorDAJitter)
+from backtoreality_tpu_torch.models.groupfree.transformer import \
+    set_dropout_generator
 from backtoreality_tpu_torch.train import common
 from backtoreality_tpu_torch.train.common import model_args, to_device
 from backtoreality_tpu_torch.train.observability import ScalarHistory
 
 __all__ = ["add_flags", "build_model", "loss_kwargs", "eval_prefixes",
-           "make_train_step", "make_da_train_step", "make_eval_step",
-           "evaluate", "main"]
+           "make_train_step", "make_da_train_step", "recal_dropout",
+           "make_eval_step", "evaluate", "main"]
 
 RECIPES = ("fsb", "wsb", "br", "br_center_refine")
 MODELS = {"plain": GroupFreeDetector, "da": GroupFreeDetectorDA,
@@ -140,6 +152,16 @@ def add_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--fps_candidates", type=int, default=None,
                         help="subset-FPS at SA1: sample from the first"
                              " K (pre-shuffled) points")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 model compute (f32 params/stats)")
+    parser.add_argument("--f32_tail", type=int, default=0,
+                        help="with --bf16: run the last N backbone"
+                             " stages (fp2, fp1, sa4, ...) in f32 —"
+                             " negligible HBM traffic, full-precision"
+                             " seed features for the decoder")
+    parser.add_argument("--bn_recal_batches", type=int, default=None,
+                        help="train-mode batches to refresh BN stats"
+                             " before eval (default 20 with --bf16)")
     parser.add_argument("--resume", action="store_true",
                         help="restore full state + epoch from"
                              " --checkpoint_path (default: this run's"
@@ -176,7 +198,9 @@ def build_model(flags, cfg, kind: str = "plain") -> GroupFreeDetector:
         self_position_embedding=flags.self_position_embedding,
         cross_position_embedding=flags.cross_position_embedding,
         query_mode=flags.query_mode,
-        fps_candidates=flags.fps_candidates)
+        fps_candidates=flags.fps_candidates,
+        dtype=common.compute_dtype(flags),
+        f32_tail=flags.f32_tail)
 
 
 def loss_kwargs(flags) -> dict:
@@ -245,6 +269,23 @@ def make_da_train_step(model, optimizer, cfg, loss_kw, *, jitter=False):
         return common.update(model, optimizer, bn_momentum, forward_loss)
 
     return step
+
+
+@contextlib.contextmanager
+def recal_dropout(model, seed: int = 0):
+    """Within, the dropout masks of `model` come from a generator of its
+    own, which the returned callable seeds with `seed` (a recalibration
+    calls it before each forward); the global RNG is not touched. The
+    JAX package recalibrates under one fixed dropout key
+    (`backtoreality_tpu/train/groupfree.py:314-345`); its draws cannot
+    be replayed, only their being fixed."""
+    device = next(model.parameters()).device
+    generator = torch.Generator(device=device)
+    set_dropout_generator(model, generator)
+    try:
+        yield lambda: generator.manual_seed(seed)
+    finally:
+        set_dropout_generator(model, None)
 
 
 def make_eval_step(model, criterion, cfg, loss_kw, prefixes, *,
@@ -355,6 +396,7 @@ def main(recipe: str, argv=None):
     optimizer."""
     if recipe not in RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}")
+    common.make_deterministic()
     da = recipe in ("br", "br_center_refine")
     jitter_model = recipe == "br_center_refine"
     parser = argparse.ArgumentParser()
@@ -449,8 +491,15 @@ def main(recipe: str, argv=None):
                 model, optimizer, epoch)
         common.save_checkpoint(ckpt_path, model, optimizer, epoch)
         if (epoch + 1) % flags.val_freq == 0:
-            results, _ = evaluate(val_loader, eval_step, cfg, device,
-                                  logger, flags, prefixes)
+            # the (target's) train batches, as the JAX loop's
+            with common.buffers_kept(model), recal_dropout(model) as seed:
+                common.recalibrate_bn(
+                    train_loader,
+                    common.make_recal_step(model, jitter=jitter_model,
+                                           before=seed),
+                    device, common.recal_batches(flags))
+                results, _ = evaluate(val_loader, eval_step, cfg, device,
+                                      logger, flags, prefixes)
             first = results[(prefixes[0], flags.ap_iou_thresholds[0])]
             history.append(epoch, {
                 "mAP": first["mAP"], "AR": first["AR"],

@@ -13,11 +13,18 @@ backward and one Adam step on the domain-adaptation criterion. It runs on
 the CUDA card unless ``--device cpu`` is given, and raises if no card is
 present and the CPU was not asked for.
 
+Every step is bitwise repeatable (`common.make_deterministic`). With
+``--bf16`` the model computes in bfloat16 over float32 parameters and
+statistics (``--f32_tail N``: the backbone's last N stages in float32).
+Before each evaluation the BN running statistics are recalibrated over
+``--bn_recal_batches`` train-mode batches (default 20 with ``--bf16``)
+and put back after it: training goes on from the statistics it had, as
+the JAX loop's, which recalibrates a copy of its state.
+
 Flag names and defaults are the JAX package's. Not ported, and so
-refused by the parser: ``--multihost``, ``--num_devices``, ``--bf16``,
-``--f32_tail``, ``--bn_recal_batches`` (and with it BN recalibration
-before evaluation), ``--profile_dir``, ``--guard_every_steps`` and
-``--ram_cache_gb`` (the datasets keep their default RAM cache of 8 GiB).
+refused by the parser: ``--multihost``, ``--num_devices``,
+``--profile_dir``, ``--guard_every_steps`` and ``--ram_cache_gb`` (the
+datasets keep their default RAM cache of 8 GiB).
 
 Usage:
   python -m backtoreality_tpu_torch.train.votenet_fsb --data_root D \
@@ -48,7 +55,11 @@ from backtoreality_tpu_torch.train.evaluate import (EVAL_CONFIG_DICT,
 from backtoreality_tpu_torch.train.observability import ScalarHistory
 
 __all__ = ["add_common_flags", "build_model", "make_train_step",
-           "make_da_train_step", "make_eval_step", "evaluate", "main"]
+           "make_da_train_step", "make_recal_step", "recalibrate_bn",
+           "make_eval_step", "evaluate", "main"]
+
+make_recal_step = common.make_recal_step
+recalibrate_bn = common.recalibrate_bn
 
 RECIPES = ("fsb", "wsb", "br", "br_center_refine")
 
@@ -84,6 +95,21 @@ def add_common_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--fps_candidates", type=int, default=None,
                         help="subset-FPS at SA1: sample from the first"
                              " K (pre-shuffled) points")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 model compute (f32 params/stats)")
+    parser.add_argument("--f32_tail", type=int, default=0,
+                        help="with --bf16: run the last N backbone"
+                             " stages (fp2, fp1, sa4, ...) in f32."
+                             " These stages carry <2%% of the HBM"
+                             " traffic but feed the classification"
+                             " heads, where bf16's quality deficit"
+                             " concentrates")
+    parser.add_argument("--bn_recal_batches", type=int, default=None,
+                        help="train-mode batches to refresh BN running"
+                             " stats before each eval (default 20 with"
+                             " --bf16, else 0): bf16 weight drift after"
+                             " the BN-momentum floor staleness-shifts"
+                             " frozen stats")
     parser.add_argument("--resume", action="store_true",
                         help="restore optimizer state + epoch from"
                              " --checkpoint_path and continue")
@@ -243,6 +269,7 @@ def _train_loop_single(flags, recipe):
 
     train_step = make_train_step(model, optimizer, criterion, cfg)
     eval_step = make_eval_step(model, criterion, cfg)
+    recal_step = common.make_recal_step(model)
     lr_fn, bn_fn = _schedules(flags)
     ckpt_path = os.path.join(flags.log_dir, "checkpoint.tar")
     for epoch in range(start_epoch, flags.max_epoch):
@@ -266,8 +293,11 @@ def _train_loop_single(flags, recipe):
                        / max(dt, 1e-9))
         common.save_checkpoint(ckpt_path, model, optimizer, epoch)
         if (epoch + 1) % flags.eval_freq == 0:
-            metrics, _ = evaluate(val_loader, eval_step, cfg, device,
-                                  logger, flags.ap_iou_thresh)
+            with common.buffers_kept(model):
+                common.recalibrate_bn(train_loader, recal_step, device,
+                                      common.recal_batches(flags))
+                metrics, _ = evaluate(val_loader, eval_step, cfg, device,
+                                      logger, flags.ap_iou_thresh)
             history.append(epoch, {"mAP": metrics["mAP"],
                                    "AR": metrics["AR"]}, kind="eval")
     return model, optimizer
@@ -326,6 +356,7 @@ def _train_loop_da(flags, recipe):
     # eval uses the weak criterion on the target domain
     eval_step = make_eval_step(model, vote_losses.get_loss_weak, cfg,
                                jitter=jitter_model)
+    recal_step = common.make_recal_step(model, jitter=jitter_model)
     lr_fn, bn_fn = _schedules(flags)
     steps_per_epoch = min(len(loader_S), len(loader_T))
     for epoch in range(start_epoch, flags.max_epoch):
@@ -360,8 +391,12 @@ def _train_loop_da(flags, recipe):
                        / max(dt, 1e-9))
         common.save_checkpoint(ckpt_path, model, optimizer, epoch)
         if (epoch + 1) % flags.eval_freq == 0:
-            metrics, _ = evaluate(val_loader, eval_step, cfg, device,
-                                  logger, flags.ap_iou_thresh)
+            # the target's train batches, as the JAX loop's
+            with common.buffers_kept(model):
+                common.recalibrate_bn(loader_T, recal_step, device,
+                                      common.recal_batches(flags))
+                metrics, _ = evaluate(val_loader, eval_step, cfg, device,
+                                      logger, flags.ap_iou_thresh)
             history.append(epoch, {"mAP": metrics["mAP"],
                                    "AR": metrics["AR"]}, kind="eval")
             with open(os.path.join(flags.log_dir, "Eval_mAP.txt"),
@@ -376,6 +411,7 @@ def main(recipe: str, argv=None):
     its optimizer."""
     if recipe not in RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}")
+    common.make_deterministic()
     parser = argparse.ArgumentParser()
     add_common_flags(parser)
     parser.add_argument("--train_split", default="train")

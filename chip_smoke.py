@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits nonzero and nothing is swallowed:
+Phases, in order; any failure exits nonzero and nothing is swallowed.
+The determinism switch (``train.common.make_deterministic``) is on from
+the start, as every entry point turns it on: every train step below is
+gated on two steps from one state giving bitwise-equal parameters.
 
 1. Build every CUDA kernel (``nvcc``, one process per source, all started
    together) into ``build/kernels/``.
@@ -34,10 +37,12 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    (64 a scene, most padded at +1000 and hitting no point) over the sa2
    points and the 288-wide fp2 features: the ball query in every tile, the
    fused grouping at C = 3 + 288 divided by r = 0.8, its backward timed,
-   with the length of its longest list.
+   with the length of its longest list. Every wrapper raises on
+   bfloat16 and float16 inputs without launching.
    Kernel, plain and library times are medians of CUDA events, with the
    host's launches queued ahead of the device so that they time device
-   work.
+   work; the plain and library backwards of the grouping run under the
+   switch, PyTorch's deterministic (sorted) scatter-add.
 3. Serving path: reset the launch counters, run the evaluation entry
    point (``backtoreality_tpu_torch.train.evaluate.main``) over 16
    synthetic scans at B=8, N=40000 on ``cuda``, check that FPS, ball
@@ -52,8 +57,10 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    backwards per step) and that ``evaluate.main`` loads the checkpoint.
    Then time the train step at ``bench.py``'s configuration (a fixed
    batch, Adam at lr 1e-3, BN momentum 0.5), print its device time by
-   kernel, and print (without gating) whether two steps from one state
-   give bitwise-equal parameters.
+   kernel and what the determinism switch costs it (wall and kernels with
+   the switch off, on, and on with its NaN fill of new tensors; the three
+   ops that grew most; the later steps without the fill's arm), and gate
+   the FSB and the WSB step on bitwise repeatability.
 5. The paper's recipes: the WSB, BR and BR+CenterRefine entry points
    (``votenet_{wsb,br,br_center_refine}.main``) for one epoch (2 steps)
    and one evaluation each at the same width, BR and CenterRefine with a
@@ -61,12 +68,22 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    checkpoint; the launch counts checked per recipe, and the CenterRefine
    checkpoint scored through ``evaluate --kind da_jitter``. Then the BR
    and CenterRefine train steps on one fixed pair of batches: wall time,
-   phases, kernels' device time and peak memory.
-6. The checkpoint gate: the JAX package's trained checkpoint
+   phases, kernels' device time, peak memory, the switch's cost,
+   bitwise repeatability. Then VoteNet with ``--bf16 --f32_tail 2``: the
+   FSB step beside the float32 one (wall, kernels, busy, peak; gated on
+   repeatability), the kernels held against their plain versions at that
+   path's inputs (float32, the bfloat16 features promoted), and
+   ``votenet_fsb.main --bf16 --f32_tail 2`` for one epoch of 2 steps and
+   an evaluation, which recalibrates BN over 20 train batches first (the
+   float32 path's launches a forward and backwards a step).
+6. The checkpoint gates: the JAX package's trained checkpoint
    (``evidence/round4/ckpt/lad_f32.tar.gz``) read by the port's msgpack
    reader and scored by ``evaluate.main`` over 3 subsample seeds on the
    100-scan shapefix val; fails unless each IoU's mean mAP lies within
-   the JAX package's spread of its mean.
+   the JAX package's spread of its mean. Then its bfloat16 checkpoint
+   ``lad_t2`` through ``evaluate --bf16 --f32_tail 2`` after 20 batches
+   of BN recalibration on the shapefix train split, as the JAX package
+   scored it; fails unless each mean lies within twice the JAX spread.
 7. GroupFree3D at its CLI defaults (B=8, N=50000, 6 decoder layers, 256
    queries, no height feature) on 16 synthetic scans of 52000 points:
    ``evaluate --model groupfree`` with random seeded weights (launches 4
@@ -75,7 +92,10 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    ``gf_wsb`` for one epoch (2 steps) and one evaluation each (3 grouping
    backwards a step), the FSB checkpoint scored by ``evaluate --model
    groupfree``; the GF FSB train step on a fixed batch (wall, phases,
-   kernels' device time, peak memory; bitwise repeatability printed);
+   kernels' device time, peak memory, the switch's cost; the FSB and WSB
+   steps gated on bitwise repeatability); the same FSB step and
+   ``gf_fsb.main`` with ``--bf16 --f32_tail 2`` (20 recalibration
+   batches before the evaluation);
    ``gf_br`` and ``gf_br_center_refine`` for one epoch (2 steps of 8 + 8
    scenes) and one evaluation each, a 16-scan virtual fixture of 52000
    points a scan as the source (launches 4/4/4 a forward, 4/5/5 with the
@@ -83,10 +103,10 @@ Phases, in order; any failure exits nonzero and nothing is swallowed:
    CenterRefine (the partial-restore counts checked) and scored by
    ``evaluate --model groupfree``; both DA steps on a fixed pair of
    batches (wall, phases, kernels' device time, busy share, peak memory,
-   bitwise repeatability printed). Then the learning check: ``gf_fsb``
-   on the shapefix train split at the JAX package's shapefix
-   configuration (N=20000, height, subset FPS over 8192) for 50 epochs of
-   5 steps, each epoch's loss beside the JAX run's
+   the switch's cost, bitwise repeatability gated). Then the learning
+   check: ``gf_fsb`` on the shapefix train split at the JAX package's
+   shapefix configuration (N=20000, height, subset FPS over 8192) for 50
+   epochs of 5 steps, each epoch's loss beside the JAX run's
    (``evidence/round5/gflad/f32_metrics.jsonl``); fails unless the mean
    loss over epochs 40-49 lies within 0.67-1.5 times the JAX run's and
    mAP@0.25 at epoch 49 reaches 0.30.
@@ -141,6 +161,7 @@ JITTER_PATH = ("br_center_refine",)
 GF_TRAINING = ("gf_fsb", "gf_wsb", "gf_br", "gf_br_center_refine")
 GF_PATHS = ("gf_serving",) + GF_TRAINING
 GF_JITTER_PATH = ("gf_br_center_refine",)
+BF16_TRAINING = ("training_bf16", "gf_fsb_bf16")
 N_GF = 50000
 # launches per forward (FPS, ball query, the fused grouping) and grouping
 # backwards per train step, by model graph. A DA step runs two forwards
@@ -161,6 +182,20 @@ BACKWARDS_PER_STEP = {"plain": 4, "da": 8, "da_jitter": 9, "gf": 3,
 GATE_CHECKPOINT = "evidence/round4/ckpt/lad_f32.tar.gz"
 GATE = {0.25: (0.8210, 0.0064, (0.8234, 0.8138, 0.8258)),
         0.5: (0.6202, 0.0226, (0.6439, 0.5990, 0.6178))}
+# the second checkpoint gate: the JAX package's bfloat16 checkpoint lad_t2
+# (--bf16 --f32_tail 2) scored by its evaluate after 20 batches of BN
+# recalibration on the shapefix train split
+# (evidence/round5/queue/s2_ladder_bigval.sh,
+# evidence/round5/r5_ladeval_t2.out, RESULTS.md:1036-1041): mean, spread
+# and seeds per IoU. The card's mean must lie within GATE_T2_BAND spreads:
+# the JAX spread is the subsample seeds' only, and bfloat16 products
+# accumulate in another order on the TPU's matrix units than on Hopper's
+# tensor cores
+GATE_T2_CHECKPOINT = "evidence/round4/ckpt/lad_t2.tar.gz"
+GATE_T2 = {0.25: (0.7571, 0.0056, (0.7636, 0.7543, 0.7535)),
+           0.5: (0.4982, 0.0186, (0.4981, 0.5169, 0.4797))}
+GATE_T2_BAND = 2
+RECAL_BATCHES = 20  # --bn_recal_batches' default with --bf16
 # the GroupFree3D learning check: the JAX package's run of GF FSB on the
 # shapefix train split (evidence/round5/gflad/f32_config.json), its
 # per-epoch losses and the in-loop mAP@0.25 at epoch 49 in f32_metrics.jsonl,
@@ -887,6 +922,96 @@ def profile_steps(fn, label, steps=3):
     return dev_ms
 
 
+def op_device_ms(fn, steps=1):
+    """({op: device ms per call}, kernels' device ms per call) over
+    `steps` calls of `fn` (torch.profiler): each kernel's time goes to the
+    PyTorch op that launched it. One call by default: the profiler takes
+    seconds to sort a train step's ops."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    ops, dev = {}, 0.0
+    for e in prof.key_averages():
+        ms = _device_us(e) / 1e3 / steps
+        if e.device_type == DeviceType.CUDA:
+            if not getattr(e, "is_user_annotation", False):
+                dev += ms
+        elif ms:
+            ops[e.key] = ops.get(e.key, 0.0) + ms
+    return ops, dev
+
+
+def determinism_cost(label, run, fill=False):
+    """What the determinism switch costs one train step: its wall (CUDA
+    events, median of 3 after a warm-up) and its kernels' device time
+    with the switch off and on as the entry points set it
+    (`common.make_deterministic`: no NaN fill of new tensors), and with
+    `fill` also on with that fill; the three ops whose device time grew
+    the most from off to on. Leaves the switch as the entry points set
+    it."""
+    import torch
+
+    from backtoreality_tpu_torch.train.common import make_deterministic
+
+    out = {}
+    settings = [("off", False, False), ("on", True, False)]
+    if fill:
+        settings.append(("on+fill", True, True))
+    for name, mode, nan_fill in settings:
+        torch.use_deterministic_algorithms(mode)
+        torch.utils.deterministic.fill_uninitialized_memory = nan_fill
+        ms = cuda_ms(run, reps=3, warmup=1)
+        ops, dev = op_device_ms(run)
+        out[name] = dict(ms=ms, device_ms=dev, ops=ops)
+    make_deterministic()
+    off, on = out["off"]["ops"], out["on"]["ops"]
+    grew = sorted(((on.get(k, 0.0) - off.get(k, 0.0), k)
+                   for k in set(on) | set(off)), reverse=True)[:3]
+    print(f"[determinism cost] {label}: wall "
+          + ", ".join(f"{k} {v['ms']:.3f}" for k, v in out.items())
+          + " ms; kernels "
+          + ", ".join(f"{k} {v['device_ms']:.3f}" for k, v in out.items())
+          + " ms; grew most (off -> on): "
+          + "; ".join(f"{k} {off.get(k, 0.0):.3f} -> {on.get(k, 0.0):.3f}"
+                      f" ms" for _, k in grew))
+    out["grew"] = [k for _, k in grew]
+    return out
+
+
+def check_determinism(label, model, opt, run):
+    """Two steps from one state (the model's, the optimizer's, and the
+    global RNG's for the dropout draws) and one batch: every parameter
+    tensor must come out bitwise equal. Leaves the model and the optimizer
+    in the state of the first step taken."""
+    import copy
+
+    import torch
+
+    state = copy.deepcopy(model.state_dict())
+    opt_state = copy.deepcopy(opt.state_dict())
+    after = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        # a copy: the optimizer keeps the tensors it is given and steps
+        # them in place
+        opt.load_state_dict(copy.deepcopy(opt_state))
+        torch.manual_seed(1)
+        run()
+        after.append([p.detach().clone() for p in model.parameters()])
+    differ = sum(not torch.equal(a, b) for a, b in zip(*after))
+    print(f"[determinism] {label}: two steps from one state and batch:"
+          f" {differ} of {len(after[0])} parameter tensors differ bitwise")
+    require(differ == 0, f"{label}: {differ} parameter tensors differ"
+            " bitwise between two steps from one state")
+
+
 def reset(counters):
     for k in counters:
         k.launches = 0
@@ -921,9 +1046,10 @@ def check_counts(label, launches, kind, forwards, steps):
 
 
 def train_phase(scans, tmp, cfg, counters, header):
-    """The FSB entry point on the card, then the bench-config step."""
-    import copy
-
+    """The FSB entry point on the card, then the bench-config step: wall,
+    phases, kernels, what the determinism switch costs it, and the FSB
+    and WSB steps gated on bitwise repeatability. Returns the launches and
+    the step's numbers."""
     import torch
 
     from backtoreality_tpu_torch.data.dataset import DetectionDataset
@@ -994,23 +1120,21 @@ def train_phase(scans, tmp, cfg, counters, header):
     dev_ms = profile_steps(lambda: step(batch, 0.5), "train steps")
     print(f"  device busy {dev_ms / step_ms:.3f} of the unprofiled step"
           f" ({dev_ms:.3f} of {step_ms:.3f} ms)")
+    determinism_cost("VoteNet FSB step", lambda: step(batch, 0.5),
+                     fill=True)
 
-    # bitwise determinism of a whole step (printed, not gated: the other
-    # gathers' backwards and the interpolation's still use atomics)
-    state = copy.deepcopy(model.state_dict())
-    opt_state = copy.deepcopy(opt.state_dict())
-    after = []
-    for _ in range(2):
-        model.load_state_dict(state)
-        # a copy: the optimizer keeps the tensors it is given and steps
-        # them in place
-        opt.load_state_dict(copy.deepcopy(opt_state))
-        step(batch, 0.5)
-        after.append([p.detach().clone() for p in model.parameters()])
-    differ = sum(not torch.equal(a, b) for a, b in zip(*after))
-    print(f"[determinism] two steps from one state and batch: {differ} of"
-          f" {len(after[0])} parameter tensors differ bitwise")
-    return launches
+    # bitwise determinism of a whole step, gated (the switch is on)
+    check_determinism("VoteNet FSB", model, opt, lambda: step(batch, 0.5))
+    # and of WSB's: the weak criterion, the centres jittered
+    wsb_batch = votenet.to_device(next(iter(DetectionDataLoader(
+        DetectionDataset(cfg, scans, split="all", num_points=N,
+                         use_height=True, augment=True, center_jitter=0.1),
+        B, shuffle=False, prefetch=0))), "cuda")
+    wsb_step = votenet.make_train_step(model, opt, vote_losses.get_loss_weak,
+                                       cfg)
+    check_determinism("VoteNet WSB", model, opt,
+                      lambda: wsb_step(wsb_batch, 0.5))
+    return launches, dict(ms=step_ms, device_ms=dev_ms, peak_gb=peak_gb)
 
 
 def recipe_phase(scans, virtual, tmp, counters):
@@ -1087,7 +1211,8 @@ def da_step_phase(scans, virtual, cfg, header):
     (B=8, N=40000, --fps_candidates 8192, Adam at lr 1e-3, BN momentum
     0.5; epoch 30 for the label refinement) on one fixed pair of batches:
     wall time (CUDA events, median of 10 after 2 warm-ups), phases,
-    kernels' device time (profiler) and peak memory."""
+    kernels' device time (profiler), peak memory, what the determinism
+    switch costs, and bitwise repeatability (gated)."""
     import torch
 
     from backtoreality_tpu_torch.data.dataset import DetectionDataset
@@ -1146,10 +1271,207 @@ def da_step_phase(scans, virtual, cfg, header):
         dev_ms = profile_steps(run, f"{recipe} steps")
         print(f"  device busy {dev_ms / ms:.3f} of the unprofiled step"
               f" ({dev_ms:.3f} of {ms:.3f} ms)")
+        determinism_cost(f"VoteNet {recipe} step", run)
+        check_determinism(f"VoteNet {recipe}", model, opt, run)
         out[recipe] = dict(ms=ms, device_ms=dev_ms, peak_gb=peak_gb,
                            phases=phases)
         del model, opt, step
     return out
+
+
+def check_half_refused(xyz, feats, ctr, fps, bq, grouping, counters):
+    """Every kernel's wrapper raises on bfloat16 and float16 inputs, and
+    launches nothing: a bfloat16 path must promote to float32 itself."""
+    import torch
+
+    reset(counters)
+    idx, hit = bq.ball_query_stratified(xyz, ctr, 0.4, 32, return_hit=True)
+    calls = {
+        "fps": lambda h: fps.furthest_point_sample(xyz.to(h), 64),
+        "ball_query": lambda h: bq.ball_query_stratified(
+            xyz.to(h), ctr.to(h), 0.4, 32),
+        "group_stratified": lambda h: grouping.group_points_stratified(
+            feats.to(h), idx, hit),
+        "group_localize_stratified": lambda h:
+            grouping.group_localize_stratified(xyz, feats.to(h), ctr, idx,
+                                               hit, 0.4)}
+    for name, call in calls.items():
+        for half in (torch.bfloat16, torch.float16):
+            try:
+                call(half)
+            except TypeError:
+                continue
+            require(False, f"{name}: the wrapper took a {half} input")
+    launched = {k: v for k, v in read_counts(counters).items() if v}
+    require(launched == {"ball_query": 1},
+            f"launches on refused inputs: {launched}")
+    print("[kernels] every wrapper raises TypeError on bfloat16 and float16"
+          " inputs, launching nothing")
+
+
+def bf16_step(label, model, opt, step, batches, header, f32):
+    """A bfloat16 train step on fixed batches: wall (median of 10 CUDA-event
+    timings after 2 warm-ups), peak memory, kernels' device time and busy
+    share beside the float32 step's (`f32`), and bitwise repeatability
+    (gated). Returns the numbers."""
+    import torch
+
+    def run():
+        return step(*batches)
+
+    for _ in range(2):
+        run()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(run, reps=10, warmup=0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    aux = run()
+    require(math.isfinite(aux["loss"].item()), f"{label}: loss not finite")
+    dev_ms = profile_steps(run, f"{label} steps")
+    print(f"[train step] {label}: {ms:.3f} ms per step (median of 10 after"
+          f" 2 warm-ups), peak {peak_gb:.2f} GiB, kernels {dev_ms:.3f} ms,"
+          f" device busy {dev_ms / ms:.3f}, loss {aux['loss'].item():.4f};"
+          f" float32: {f32['ms']:.3f} ms, peak {f32['peak_gb']:.2f} GiB,"
+          f" kernels {f32['device_ms']:.3f} ms  | {header}")
+    check_determinism(label, model, opt, run)
+    return dict(ms=ms, device_ms=dev_ms, peak_gb=peak_gb)
+
+
+def bf16_phase(scans, tmp, cfg, counters, header, f32, fps, bq, grouping):
+    """VoteNet with --bf16 --f32_tail 2. The FSB step at the bench
+    configuration (`bf16_step`, beside the float32 step `f32`); on one
+    forward of that model, the kernels held against their plain versions
+    at this path's inputs (the features reach the grouping as float32,
+    promoted from bfloat16); then ``votenet_fsb.main`` for one epoch of 2
+    steps and one evaluation, which first recalibrates BN over 20 train
+    batches, with the float32 path's launches a forward and backwards a
+    step. Returns the launches."""
+    import torch
+
+    from backtoreality_tpu_torch.data.dataset import DetectionDataset
+    from backtoreality_tpu_torch.data.loader import DetectionDataLoader
+    from backtoreality_tpu_torch.losses import votenet as vote_losses
+    from backtoreality_tpu_torch.train import common, votenet, votenet_fsb
+
+    flags = votenet.add_common_flags(argparse.ArgumentParser()).parse_args(
+        ["--fps_candidates", "8192", "--bf16", "--f32_tail", "2"])
+    torch.manual_seed(0)
+    model = votenet.build_model(flags, cfg).cuda()
+    opt = common.make_optimizer(model.parameters(), "adam", lr0=1e-3)
+    step = votenet.make_train_step(model, opt, vote_losses.get_loss, cfg)
+    ds = DetectionDataset(cfg, scans, split="all", num_points=N,
+                          use_height=True, augment=True)
+    batch = votenet.to_device(next(iter(DetectionDataLoader(
+        ds, B, shuffle=False, prefetch=0))), "cuda")
+    bf16_step(f"VoteNet FSB --bf16 --f32_tail 2 B={B} N={N}"
+              " fps_candidates=8192, Adam lr 1e-3, BN momentum 0.5", model,
+              opt, step, (batch, 0.5), header, f32)
+
+    model.eval()
+    with torch.no_grad():
+        ep = model(batch["point_clouds"])
+    require(ep["sa1_features"].dtype == torch.bfloat16
+            and ep["fp2_features"].dtype == torch.float32,
+            "bf16 path: sa1 features must be bfloat16, fp2's (f32_tail 2)"
+            " float32")
+    check_fps("vote_agg (bf16 path)", ep["vote_xyz"], 256, fps, reps=1)
+    check_bq("sa2 (bf16 path)", ep["sa1_xyz"], ep["sa2_xyz"], 0.4, 32, bq,
+             reps=0)
+    check_localize("sa2 (bf16 path)", ep["sa1_xyz"],
+                   ep["sa1_features"].float(), ep["sa2_xyz"], 0.4, 32, bq,
+                   grouping, reps=0, needs=("features",))
+    del model, opt, step, ep
+
+    log = pathlib.Path(tmp) / "fsb_bf16_log"
+    steps = NUM_SCANS // B
+    reset(counters)
+    t0 = time.perf_counter()
+    votenet_fsb.main([
+        "--data_root", str(scans), "--train_split", "all", "--val_split",
+        "all", "--log_dir", str(log), "--device", "cuda", "--num_point",
+        str(N), "--batch_size", str(B), "--fps_candidates", "8192",
+        "--bf16", "--f32_tail", "2", "--max_epoch", "1", "--eval_freq",
+        "1"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts(counters)
+    print(f"[training path: fsb --bf16 --f32_tail 2] votenet_fsb.main:"
+          f" {steps} steps, {RECAL_BATCHES} recalibration batches and one"
+          f" evaluation in {secs:.1f} s; launches {launches}")
+    check_counts("fsb --bf16", launches, "plain",
+                 steps + RECAL_BATCHES + math.ceil(NUM_SCANS / B), steps)
+    rows = [json.loads(line) for line in
+            (log / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    maps = [r["mAP"] for r in rows if "mAP" in r]
+    require(len(losses) == 1 and len(maps) == 1
+            and all(map(math.isfinite, losses + maps)),
+            f"fsb --bf16: loss {losses}, mAP {maps}")
+    print(f"  epoch loss {losses[0]:.4f}, eval mAP@0.25 {maps[0]:.4f}")
+    return launches
+
+
+def gf_bf16_phase(scans, tmp, cfg, counters, header, f32, bq, grouping):
+    """GroupFree3D with --bf16 --f32_tail 2 at its CLI defaults: the FSB
+    step (`bf16_step`, beside the float32 step `f32`), the SA2 grouping
+    held against its plain version at this path's input, and
+    ``gf_fsb.main`` for one epoch of 2 steps and one evaluation after 20
+    batches of recalibration, with the float32 path's launches. Returns
+    the launches."""
+    import torch
+
+    from backtoreality_tpu_torch.losses import groupfree as gf_losses
+    from backtoreality_tpu_torch.train import common, gf_fsb, groupfree
+
+    flags = groupfree.add_flags(argparse.ArgumentParser()).parse_args(
+        ["--bf16", "--f32_tail", "2"])
+    steps = NUM_SCANS // B
+    torch.manual_seed(0)
+    model = groupfree.build_model(flags, cfg).cuda()
+    opt = common.make_gf_optimizer(
+        model, common.make_gf_schedule(flags.learning_rate, flags, steps),
+        common.make_gf_schedule(flags.decoder_learning_rate, flags, steps),
+        flags.weight_decay, flags.clip_norm)
+    step = groupfree.make_train_step(model, opt, gf_losses.get_loss, cfg,
+                                     groupfree.loss_kwargs(flags))
+    batch = gf_first_batch(scans, cfg, use_height=False, augment=True)
+    bf16_step(f"GroupFree3D FSB --bf16 --f32_tail 2 B={B} N={N_GF} (CLI"
+              " defaults)", model, opt, step, (batch, flags.bn_momentum),
+              header, f32)
+    model.eval()
+    with torch.no_grad():
+        ep = model(batch["point_clouds"])
+    require(ep["sa1_features"].dtype == torch.bfloat16
+            and ep["fp2_features"].dtype == torch.float32,
+            "GF bf16 path: sa1 features must be bfloat16, fp2's float32")
+    check_localize("GF sa2 (bf16 path)", ep["sa1_xyz"],
+                   ep["sa1_features"].float(), ep["sa2_xyz"], 0.4, 32, bq,
+                   grouping, reps=0, needs=("features",))
+    del model, opt, step, ep
+
+    log = pathlib.Path(tmp) / "gf_fsb_bf16_log"
+    reset(counters)
+    t0 = time.perf_counter()
+    gf_fsb.main(["--data_root", str(scans), "--train_split", "all",
+                 "--val_split", "all", "--log_dir", str(log), "--device",
+                 "cuda", "--batch_size", str(B), "--bf16", "--f32_tail", "2",
+                 "--max_epoch", "1", "--val_freq", "1"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts(counters)
+    print(f"[training path: gf_fsb --bf16 --f32_tail 2] gf_fsb.main: {steps}"
+          f" steps, {RECAL_BATCHES} recalibration batches and one evaluation"
+          f" in {secs:.1f} s; launches {launches}")
+    check_counts("gf_fsb --bf16", launches, "gf",
+                 steps + RECAL_BATCHES + math.ceil(NUM_SCANS / B), steps)
+    rows = [json.loads(line) for line in
+            (log / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    maps = [r["mAP"] for r in rows if "mAP" in r]
+    require(len(losses) == 1 and len(maps) == 1
+            and all(map(math.isfinite, losses + maps)),
+            f"gf_fsb --bf16: loss {losses}, mAP {maps}")
+    print(f"  epoch loss {losses[0]:.4f}, eval mAP@0.25 {maps[0]:.4f}")
+    return launches
 
 
 def gate_phase(tmp, counters):
@@ -1181,21 +1503,62 @@ def gate_phase(tmp, counters):
                  3 * math.ceil(100 / 8), 0)
     print(f"[checkpoint gate] subset FPS 8192: evaluate.main, 3 seeds over"
           f" 100 scans, in {secs:.1f} s")
+    gate_check("checkpoint gate", results, GATE, 1)
+    return val
+
+
+def gate_check(label, results, table, band):
+    """Each IoU's 3-seed mean mAP against the JAX package's mean: within
+    `band` times its spread, the seeds printed side by side."""
     failed = []
-    for t, (mean, spread, seeds) in GATE.items():
+    for t, (mean, spread, seeds) in table.items():
         got = results[("", t)]
         card = [r["mAP"] for r in got["seeds"]]
-        within = abs(got["mAP"] - mean) <= spread
+        allowed = band * spread
+        within = abs(got["mAP"] - mean) <= allowed
         jax_seeds = " / ".join(f"{v:.4f}" for v in seeds)
         print(f"  mAP@{t}: card {got['mAP']:.4f} (seeds "
               + " / ".join(f"{v:.4f}" for v in card)
               + f"), JAX package {mean:.4f} +/- {spread} (seeds"
-              f" {jax_seeds}): {'within' if within else 'OUTSIDE'} the"
-              " spread")
+              f" {jax_seeds}): {'within' if within else 'OUTSIDE'}"
+              f" {band} x the spread ({allowed:.4f})")
         if not within:
             failed.append(f"mAP@{t} {got['mAP']:.4f} not within"
-                          f" {spread} of {mean}")
-    require(not failed, "checkpoint gate: " + "; ".join(failed))
+                          f" {allowed:.4f} of {mean}")
+    require(not failed, f"{label}: " + "; ".join(failed))
+
+
+def gate_t2_phase(val, tmp, counters):
+    """Score the JAX package's bfloat16 checkpoint lad_t2 on the card as
+    the JAX package did (``s2_ladder_bigval.sh``): ``evaluate.main --bf16
+    --f32_tail 2`` after 20 batches of BN recalibration on the shapefix
+    train split (the port's ``write_shapefix_train``), over 3 subsample
+    seeds of the 100-scan val of `gate_phase`. Fails unless each IoU's
+    mean lies within GATE_T2_BAND spreads of the JAX package's."""
+    from backtoreality_tpu_torch.datagen.shapefix import write_shapefix_train
+    from backtoreality_tpu_torch.train import evaluate
+
+    root = pathlib.Path(tmp) / "shapefix_recal"
+    t0 = time.perf_counter()
+    train, _ = write_shapefix_train(root)
+    print(f"[checkpoint gate lad_t2] shapefix train {len(train)} scans"
+          f" written in {time.perf_counter() - t0:.1f} s")
+    reset(counters)
+    t0 = time.perf_counter()
+    results = evaluate.main([
+        "--model", "votenet", "--checkpoint_path",
+        str(ROOT / GATE_T2_CHECKPOINT), "--bf16", "--f32_tail", "2",
+        "--train_data_root", str(root / "train"), "--recal_split", "all",
+        "--data_root", str(val), "--split", "all", "--num_point", "20000",
+        "--num_target", "256", "--batch_size", "8", "--eval_seeds", "3",
+        "--fps_candidates", "8192", "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    check_counts("checkpoint gate lad_t2", read_counts(counters), "plain",
+                 RECAL_BATCHES + 3 * math.ceil(100 / 8), 0)
+    print(f"[checkpoint gate lad_t2] --bf16 --f32_tail 2, {RECAL_BATCHES}"
+          f" recalibration batches, 3 seeds over 100 scans, in {secs:.1f}"
+          " s")
+    gate_check("checkpoint gate lad_t2", results, GATE_T2, GATE_T2_BAND)
 
 
 def gf_flags():
@@ -1205,7 +1568,8 @@ def gf_flags():
     return groupfree.add_flags(argparse.ArgumentParser()).parse_args([])
 
 
-def gf_first_batch(scans, cfg, use_height, augment=False):
+def gf_first_batch(scans, cfg, use_height, augment=False,
+                   center_jitter=0.0):
     """The first B scans of the GroupFree3D fixture at N_GF points, with
     GF's labels, as tensors on the card."""
     from backtoreality_tpu_torch.data.dataset import DetectionDataset
@@ -1214,7 +1578,7 @@ def gf_first_batch(scans, cfg, use_height, augment=False):
 
     ds = DetectionDataset(cfg, scans, split="all", num_points=N_GF,
                           use_height=use_height, augment=augment,
-                          gf_labels=True)
+                          center_jitter=center_jitter, gf_labels=True)
     return to_device(next(iter(DetectionDataLoader(
         ds, B, shuffle=False, prefetch=0))), "cuda")
 
@@ -1343,11 +1707,10 @@ def gf_train_phase(scans, tmp, cfg, counters, header):
     (2 steps) and one evaluation each, the launch counts checked per
     recipe, the FSB checkpoint scored by ``evaluate --model groupfree``;
     then the GF FSB train step on a fixed batch (B=8, N=50000): wall,
-    phases, kernels' device time, peak memory, busy share, and (printed,
-    not gated) whether two steps from one state are bitwise equal.
-    Returns the launches by recipe."""
-    import copy
-
+    phases, kernels' device time, peak memory, busy share, what the
+    determinism switch costs, and the FSB and WSB steps gated on bitwise
+    repeatability. Returns the launches by recipe and the step's
+    numbers."""
     import torch
 
     from backtoreality_tpu_torch.losses import groupfree as gf_losses
@@ -1422,23 +1785,19 @@ def gf_train_phase(scans, tmp, cfg, counters, header):
     dev_ms = profile_steps(lambda: step(batch, bnm), "GF train steps")
     print(f"  device busy {dev_ms / step_ms:.3f} of the unprofiled step"
           f" ({dev_ms:.3f} of {step_ms:.3f} ms)")
+    determinism_cost("GroupFree3D FSB step", lambda: step(batch, bnm),
+                     fill=True)
 
     # bitwise determinism of a whole step, the dropout draws seeded alike
-    state = copy.deepcopy(model.state_dict())
-    opt_state = copy.deepcopy(opt.state_dict())
-    after = []
-    for _ in range(2):
-        model.load_state_dict(state)
-        # a copy: the optimizer keeps the tensors it is given and steps
-        # them in place
-        opt.load_state_dict(copy.deepcopy(opt_state))
-        torch.manual_seed(1)
-        step(batch, bnm)
-        after.append([p.detach().clone() for p in model.parameters()])
-    differ = sum(not torch.equal(a, b) for a, b in zip(*after))
-    print(f"[determinism] GroupFree3D: two steps from one state and batch:"
-          f" {differ} of {len(after[0])} parameter tensors differ bitwise")
-    return launches
+    check_determinism("GroupFree3D FSB", model, opt,
+                      lambda: step(batch, bnm))
+    wsb_batch = gf_first_batch(scans, cfg, use_height=False, augment=True,
+                               center_jitter=0.1)
+    wsb_step = groupfree.make_train_step(model, opt, gf_losses.get_loss_weak,
+                                         cfg, loss_kw)
+    check_determinism("GroupFree3D WSB", model, opt,
+                      lambda: wsb_step(wsb_batch, bnm))
+    return launches, dict(ms=step_ms, device_ms=dev_ms, peak_gb=peak_gb)
 
 
 # what `partial_restore` logs grafting a BR checkpoint into the CenterRefine
@@ -1469,10 +1828,8 @@ def gf_da_phase(scans, virtual, tmp, cfg, counters, header):
     --model groupfree``. Then each DA step on one fixed pair of batches
     (epoch 30 for the label refinement): wall (median of 10 CUDA-event
     timings after 2 warm-ups), scenes/s, peak memory, phases, kernels'
-    device time and busy share, and (printed, not gated) whether two steps
-    from one state are bitwise equal. Returns the launches by recipe."""
-    import copy
-
+    device time and busy share, what the determinism switch costs, and
+    bitwise repeatability (gated). Returns the launches by recipe."""
     import torch
 
     from backtoreality_tpu_torch.data.dataset import DetectionDataset
@@ -1596,21 +1953,9 @@ def gf_da_phase(scans, virtual, tmp, cfg, counters, header):
         dev_ms = profile_steps(run, f"GF {recipe} steps")
         print(f"  device busy {dev_ms / ms:.3f} of the unprofiled step"
               f" ({dev_ms:.3f} of {ms:.3f} ms)")
-
-        state = copy.deepcopy(model.state_dict())
-        opt_state = copy.deepcopy(opt.state_dict())
-        after = []
-        for _ in range(2):
-            model.load_state_dict(state)
-            opt.load_state_dict(copy.deepcopy(opt_state))
-            torch.manual_seed(1)
-            run()
-            after.append([p.detach().clone() for p in model.parameters()])
-        differ = sum(not torch.equal(a, b) for a, b in zip(*after))
-        print(f"[determinism] GroupFree3D {recipe}: two steps from one state"
-              f" and pair of batches: {differ} of {len(after[0])} parameter"
-              " tensors differ bitwise")
-        del model, opt, step, state, opt_state, after
+        determinism_cost(f"GroupFree3D {recipe} step", run)
+        check_determinism(f"GroupFree3D {recipe}", model, opt, run)
+        del model, opt, step
     return launches
 
 
@@ -1697,6 +2042,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from backtoreality_tpu_torch.train.common import make_deterministic
+
+    # as every entry point does, before any CUDA work: the steps timed and
+    # checked here are the ones users run
+    make_deterministic()
     from backtoreality_tpu_torch.data import get_config
     from backtoreality_tpu_torch.data.dataset import DetectionDataset
     from backtoreality_tpu_torch.data.loader import DetectionDataLoader
@@ -1837,6 +2187,8 @@ def main() -> int:
     # without features: the coordinates alone
     _, x, _, c, r, s = sa_calls[2]
     check_localize("sa3_xyz_only", x, None, c, r, s, bq, grouping, reps=0)
+    check_half_refused(ep["sa1_xyz"], ep["sa1_features"], ep["sa2_xyz"],
+                       fps, bq, grouping, counters)
     del ep
     # GroupFree3D's fixture: 8 objects of 5500 points and 8000 floor points,
     # 52000 a scan, so the 50000-point draw takes no point twice
@@ -1902,7 +2254,8 @@ def main() -> int:
     # table for virtual scans there), the DA steps, and the checkpoint
     # gate
     paths = {"serving": serving}
-    paths["training"] = train_phase(scans, tmp.name, cfg, counters, header)
+    paths["training"], fsb_f32 = train_phase(scans, tmp.name, cfg, counters,
+                                             header)
     lap("votenet fsb")
     virtual = pathlib.Path(tmp.name) / "obj_aug"
     write_synthetic_scans(virtual, cfg, num_scans=NUM_SCANS, seed=1,
@@ -1912,15 +2265,25 @@ def main() -> int:
     lap("votenet recipes")
     da_step_phase(scans, virtual, cfg, header)
     lap("votenet da steps")
-    gate_phase(tmp.name, counters)
+    paths["training_bf16"] = bf16_phase(scans, tmp.name, cfg, counters,
+                                        header, fsb_f32, fps, bq, grouping)
+    lap("votenet bf16")
+    val = gate_phase(tmp.name, counters)
     lap("checkpoint gate")
+    gate_t2_phase(val, tmp.name, counters)
+    lap("checkpoint gate lad_t2")
 
     # 7. GroupFree3D: serving, FSB and WSB, and the learning check
     paths["gf_serving"] = gf_serving_phase(gf_scans, tmp.name, cfg, counters,
                                            header)
     lap("gf serving")
-    paths.update(gf_train_phase(gf_scans, tmp.name, cfg, counters, header))
+    gf_launches, gf_f32 = gf_train_phase(gf_scans, tmp.name, cfg, counters,
+                                         header)
+    paths.update(gf_launches)
     lap("gf fsb/wsb")
+    paths["gf_fsb_bf16"] = gf_bf16_phase(gf_scans, tmp.name, cfg, counters,
+                                         header, gf_f32, bq, grouping)
+    lap("gf bf16")
     # the DA recipes' source: 16 virtual scans of 52000 points (scene_aug
     # names under a path holding "obj", as VoteNet's), the GF fixture the
     # target
@@ -1968,7 +2331,7 @@ def main() -> int:
                                           for k, v in floor.items()}
     for k in kernels_line:
         require(all(k["launches_by_path"][p] > 0
-                    for p in TRAINING + GF_TRAINING),
+                    for p in TRAINING + GF_TRAINING + BF16_TRAINING),
                 f"{k['name']}: not launched on every training path")
     print("[seconds] " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
           + f"; total {sum(laps.values()):.1f}")

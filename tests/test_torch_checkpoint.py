@@ -275,9 +275,19 @@ def test_shapefix_val_equals_the_jax_fixture(tmp_path):
         assert got.dtype == ref.dtype and np.array_equal(got, ref), f.name
 
 
-@pytest.mark.parametrize("flag", ["--bn_recal_batches=4",
-                                  "--train_data_root=x", "--bf16"])
-def test_evaluate_refuses_unported_flags(scans, flag):
-    with pytest.raises(SystemExit):
-        evaluate.main(["--checkpoint_path", str(CKPT), "--data_root",
-                       str(scans), "--device", "cpu", flag])
+@pytest.mark.parametrize("flags,recalibrated", [
+    (["--bn_recal_batches=1"], 1), ([], 0),
+    (["--bf16", "--f32_tail=2", "--bn_recal_batches=1"], 1)])
+def test_evaluate_takes_the_recal_and_precision_flags(scans, capsys, flags,
+                                                      recalibrated):
+    """`--train_data_root` with `--bn_recal_batches`, alone (no
+    recalibration without `--bf16`), and with `--bf16 --f32_tail`."""
+    results = evaluate.main([
+        "--checkpoint_path", str(CKPT), "--data_root", str(scans),
+        "--split", "all", "--num_point", str(N), "--num_target", "64",
+        "--batch_size", str(B), "--device", "cpu", "--train_data_root",
+        str(scans), *flags])
+    out = capsys.readouterr().out
+    assert ("recalibrated BN stats over 1 train batches" in out) == bool(
+        recalibrated)
+    assert all(math.isfinite(m["mAP"]) for m in results.values())

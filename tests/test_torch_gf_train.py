@@ -330,13 +330,29 @@ def test_gf_wsb_trains(two_scans, tmp_path):
     assert math.isfinite(rows[1]["mAP"])
 
 
-@pytest.mark.parametrize("extra", [["--bf16"], ["--num_devices=1"],
-                                   ["--query_mode=exact"],
-                                   ["--bn_recal_batches=2"]])
+@pytest.mark.parametrize("extra", [["--num_devices=1"],
+                                   ["--query_mode=exact"]])
 def test_gf_refuses_unported_flags(scans, tmp_path, extra):
     with pytest.raises(SystemExit):
         gf_fsb.main(_gf_args(scans, tmp_path / "log", 1)
                     + ["--device", "cpu", *extra])
+
+
+@pytest.mark.parametrize("extra", [
+    ["--bf16", "--f32_tail=1", "--bn_recal_batches=1"],
+    ["--bn_recal_batches=2"]])
+def test_gf_fsb_takes_the_precision_and_recal_flags(two_scans, tmp_path,
+                                                    extra):
+    """One epoch and an evaluation, BN recalibrated before it."""
+    log = tmp_path / "log"
+    model, _ = gf_fsb.main(_gf_args(two_scans, log, 1)
+                           + ["--device", "cpu", "--val_freq", "1", *extra])
+    rows = [json.loads(line) for line in
+            (log / "metrics.jsonl").read_text().splitlines()]
+    assert math.isfinite(rows[0]["loss"]) and math.isfinite(rows[1]["mAP"])
+    assert model.backbone_net.sa1.mlp.dense0.compute_dtype == (
+        torch.bfloat16 if "--bf16" in extra else None)
+    assert all(b.dtype == torch.float32 for b in model.buffers())
 
 
 @pytest.mark.parametrize("recipe", groupfree.RECIPES)

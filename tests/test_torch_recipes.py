@@ -147,9 +147,26 @@ def test_recipes_need_cuda_unless_cpu_asked(fixtures, tmp_path, monkeypatch,
         entry.main(_recipe_args(fixtures, tmp_path / "log", recipe))
 
 
-@pytest.mark.parametrize("flag", ["--bf16", "--bn_recal_batches=4",
-                                  "--multihost"])
+@pytest.mark.parametrize("flag", ["--multihost"])
 def test_recipes_refuse_unported_flags(fixtures, tmp_path, flag):
     with pytest.raises(SystemExit):
         votenet_br.main(_recipe_args(fixtures, tmp_path / "log", "br")
                         + ["--device", "cpu", flag])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--bf16", "--f32_tail=2", "--bn_recal_batches=1"],
+    ["--bn_recal_batches=2"]])
+def test_br_takes_the_precision_and_recal_flags(fixtures, tmp_path, flags):
+    """One epoch of BR and its evaluation, the target's BN statistics
+    recalibrated before it."""
+    log = tmp_path / "log"
+    model, _ = votenet_br.main(
+        _recipe_args(fixtures, log, "br")
+        + ["--device", "cpu", "--max_epoch", "1", "--eval_freq", "1",
+           *flags])
+    rows = [json.loads(line) for line in
+            (log / "metrics.jsonl").read_text().splitlines()]
+    assert len(rows) == 2
+    assert math.isfinite(rows[0]["loss"]) and math.isfinite(rows[1]["mAP"])
+    assert all(b.dtype == torch.float32 for b in model.buffers())

@@ -272,9 +272,39 @@ def test_votenet_fsb_needs_cuda_unless_cpu_asked(scans, tmp_path,
         votenet_fsb.main(_fsb_args(scans, tmp_path / "log", 1))
 
 
-@pytest.mark.parametrize("flag", ["--bf16", "--multihost",
-                                  "--num_devices=1", "--profile_dir=x"])
+@pytest.mark.parametrize("flag", ["--multihost", "--num_devices=1",
+                                  "--profile_dir=x"])
 def test_votenet_fsb_refuses_unported_flags(scans, tmp_path, flag):
     with pytest.raises(SystemExit):
         votenet_fsb.main(_fsb_args(scans, tmp_path / "log", 1)
                          + ["--device", "cpu", flag])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--bf16"], ["--bf16", "--f32_tail=6", "--bn_recal_batches=1",
+                 "--eval_freq=1"]])
+def test_votenet_fsb_takes_bf16(scans, tmp_path, flags):
+    """bfloat16 compute over float32 parameters and statistics; the
+    second case also evaluates, after one recalibration batch. The
+    checkpoint holds no dtype: a float32 model loads it unchanged."""
+    log = tmp_path / "log"
+    model, _ = votenet_fsb.main(_fsb_args(scans, log, 1)
+                                + ["--device", "cpu", *flags])
+    cfg = jax_config()
+    plain = VoteNet(num_class=cfg.num_class,
+                    num_heading_bin=cfg.num_heading_bin,
+                    num_size_cluster=cfg.num_size_cluster,
+                    mean_size_arr=cfg.mean_size_arr, input_feature_dim=1,
+                    num_proposal=64)
+    assert tcommon.restore_weights(plain, log / "checkpoint.tar",
+                                   "VoteNet") == 0
+    for k, v in plain.state_dict().items():
+        assert torch.equal(v, model.state_dict()[k]), k
+    rows = [json.loads(line) for line in
+            (log / "metrics.jsonl").read_text().splitlines()]
+    assert math.isfinite(rows[0]["loss"])
+    assert len(rows) == (2 if "--eval_freq=1" in flags else 1)
+    sa1 = model.backbone_net.sa1.mlp.dense0.compute_dtype
+    assert sa1 == (None if "--f32_tail=6" in flags else torch.bfloat16)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(b.dtype == torch.float32 for b in model.buffers())
