@@ -11,10 +11,16 @@ channels-last (B, N, C):
   `ops.group_localize_stratified`, one kernel on the card) -> SharedMLP ->
   max-pool over the neighbourhood.
 
-Only what the ported models run is ported: the stratified query, xyz
-concatenated to the features (radius-normalized in `SAModuleVotes`; in
-`SAModuleCenters` when `normalize_xyz` is set, as GroupFree3D's jitter
-head sets it), and max pooling.
+``query_mode="exact"`` takes the reference's first-k query instead
+(`ops.ball_query`) and groups ``[xyz, features]`` with `ops.group_points`,
+a gather, before the same subtraction and division
+(``backtoreality_tpu/nn/sa_fp.py:22-59``): the mode reference-trained
+checkpoints expect.
+
+Only what the ported models run is ported: the stratified and the exact
+query, xyz concatenated to the features (radius-normalized in
+`SAModuleVotes`; in `SAModuleCenters` when `normalize_xyz` is set, as
+GroupFree3D's jitter head sets it), and max pooling.
 
 Each module's MLP computes in its `dtype` (None: the parameters'). The
 grouping always sees the coordinates' float32: the JAX package
@@ -42,6 +48,33 @@ def _as_xyz_dtype(features, xyz):
     return features.to(torch.promote_types(features.dtype, xyz.dtype))
 
 
+def _check_query_mode(query_mode):
+    if query_mode not in ("stratified", "exact"):
+        raise ValueError(f"unknown query_mode {query_mode!r}")
+
+
+def _group(query_mode, xyz, features, centers, radius, nsample, scale):
+    """Ball query + group + localize at `centers`: (B, M, nsample, 3[+C]),
+    the local coordinates divided by `scale`. Stratified: the fused op
+    (one kernel on the card). Exact: the first-k query, a gather of
+    ``[xyz, features]``, the centre subtracted, then the division."""
+    features = _as_xyz_dtype(features, xyz)
+    if query_mode == "stratified":
+        idx, hit = ops.ball_query_stratified(xyz, centers, radius, nsample,
+                                             return_hit=True)
+        return ops.group_localize_stratified(xyz, features, centers, idx,
+                                             hit, scale)
+    idx = ops.ball_query(xyz, centers, radius, nsample)
+    points = xyz if features is None else torch.cat([xyz, features], -1)
+    grouped = ops.group_points(points, idx)
+    # a tensor divisor: a true division on every device, as the fused op's
+    r = torch.full((), scale, dtype=xyz.dtype, device=xyz.device)
+    local_xyz = (grouped[..., :3] - centers[:, :, None, :]) / r
+    if features is None:
+        return local_xyz
+    return torch.cat([local_xyz, grouped[..., 3:]], -1)
+
+
 class SAModuleVotes(nn.Module):
     """Set abstraction with external-indices support
     (`PointnetSAModuleVotes`, `pointnet2_modules.py:164-272`, with
@@ -56,22 +89,13 @@ class SAModuleVotes(nn.Module):
                  fps_candidates: int | None = None,
                  dtype: torch.dtype | None = None):
         super().__init__()
-        if query_mode != "stratified":
-            raise NotImplementedError(
-                f"query_mode {query_mode!r} is not ported")
+        _check_query_mode(query_mode)
         self.npoint = npoint
         self.radius = radius
         self.nsample = nsample
+        self.query_mode = query_mode
         self.fps_candidates = fps_candidates
         self.mlp = SharedMLP(3 + in_features, mlp, dtype=dtype)
-
-    def _group(self, xyz, new_xyz, features):
-        """Ball-query + group + localize: (B, npoint, nsample, 3[+C])."""
-        idx, hit = ops.ball_query_stratified(
-            xyz, new_xyz, self.radius, self.nsample, return_hit=True)
-        return ops.group_localize_stratified(
-            xyz, _as_xyz_dtype(features, xyz), new_xyz, idx, hit,
-            self.radius)
 
     def forward(self, xyz, features=None, inds=None):
         """xyz (B,N,3); features (B,N,C) or None; inds optional (B,npoint).
@@ -82,7 +106,9 @@ class SAModuleVotes(nn.Module):
             inds = ops.furthest_point_sample(
                 xyz, self.npoint, candidates=self.fps_candidates)
         new_xyz = ops.gather_points(xyz, inds)
-        new_features = self.mlp(self._group(xyz, new_xyz, features))
+        new_features = self.mlp(_group(self.query_mode, xyz, features,
+                                       new_xyz, self.radius, self.nsample,
+                                       self.radius))
         return new_xyz, torch.amax(new_features, dim=2), inds
 
 
@@ -91,32 +117,28 @@ class SAModuleCenters(nn.Module):
     (`PointnetSAModuleCenters`, `pointnet2_modules.py:357-451`, with
     use_xyz on and max pooling).
 
-    The grouping is `ops.group_localize_stratified`, which divides the
-    local coordinates by the radius when `normalize_xyz` is set
-    (GroupFree3D's head) and by 1.0 otherwise (VoteNet's): x / 1.0 == x in
-    IEEE arithmetic, so the fused entry then gives the un-normalized
-    grouping bit for bit."""
+    The grouping divides the local coordinates by the radius when
+    `normalize_xyz` is set (GroupFree3D's head) and by 1.0 otherwise
+    (VoteNet's): x / 1.0 == x in IEEE arithmetic, so that gives the
+    un-normalized grouping bit for bit."""
 
     def __init__(self, radius: float, nsample: int, in_features: int,
                  mlp: tp.Sequence[int], query_mode: str = "stratified",
                  normalize_xyz: bool = False,
                  dtype: torch.dtype | None = None):
         super().__init__()
-        if query_mode != "stratified":
-            raise NotImplementedError(
-                f"query_mode {query_mode!r} is not ported")
+        _check_query_mode(query_mode)
         self.radius = radius
         self.nsample = nsample
+        self.query_mode = query_mode
         self.scale = radius if normalize_xyz else 1.0
         self.mlp = SharedMLP(3 + in_features, mlp, dtype=dtype)
 
     def forward(self, xyz, features, centers):
         """xyz (B,N,3); features (B,N,C); centers (B,M,3). Returns
         (B, M, mlp[-1]) features grouped at the centres."""
-        idx, hit = ops.ball_query_stratified(
-            xyz, centers, self.radius, self.nsample, return_hit=True)
-        grouped = ops.group_localize_stratified(
-            xyz, _as_xyz_dtype(features, xyz), centers, idx, hit, self.scale)
+        grouped = _group(self.query_mode, xyz, features, centers,
+                         self.radius, self.nsample, self.scale)
         return torch.amax(self.mlp(grouped), dim=2)
 
 

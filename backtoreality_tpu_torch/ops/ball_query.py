@@ -20,7 +20,12 @@ Two implementations of one function:
   a lane holds points, as ``|p|^2 - 2 c.p < r^2 - |c|^2``.
 
 They can disagree only on points within rounding error of the radius.
-The exact first-k ``ball_query`` (``query_mode=exact``) is not ported.
+
+The exact first-k query of the reference, :func:`ball_query`
+(``query_mode=exact``, the mode reference-trained checkpoints expect), is
+plain PyTorch on every device, as the JAX package leaves it to XLA: a
+chunked top-k over an ordering key (``backtoreality_tpu/ops/
+ball_query.py:71-135``).
 
 How a CUDA call is laid out on the card is decided by its shape alone
 (:func:`plan`): which of the source's two mappings it takes (a lane holds
@@ -273,6 +278,69 @@ def _ball_query_stratified_cuda(xyz, new_xyz, radius, nsample,
     _build.check(err, "bq_stratified_launch")
     KERNEL.launches += 1
     return idx, hit
+
+
+def ball_query(
+    xyz: torch.Tensor,
+    new_xyz: torch.Tensor,
+    radius: float,
+    nsample: int,
+    chunk: int = _CHUNK,
+) -> torch.Tensor:
+    """Exact reference ball query: the first `nsample` points in index
+    order with squared distance < radius^2; slots past a centre's count
+    repeat its first hit, and a centre with no hit gets index 0 in every
+    slot.
+
+    Centres go `chunk` at a time (the last chunk padded) to bound the
+    (B, chunk, N) distances. A hit's key 2n - j ranks above every miss's
+    n - j, and within each group the key falls with the index j, so the
+    top `nsample` keys are the first hits in index order; the keys are
+    unique, so ties cannot arise. float64 inputs take the direct form
+    |c - p|^2 (the expanded form's cancellation would flip points near
+    the radius against the reference's direct test); others compute in
+    float32 in the expanded form. r^2 is the Python product rounded once
+    to that dtype.
+
+    Args:
+      xyz: (B, N, 3) points.
+      new_xyz: (B, M, 3) query centres.
+      radius: ball radius.
+      nsample: slots per centre.
+      chunk: centres per distance block.
+
+    Returns:
+      (B, M, nsample) int32 indices into N, on the inputs' device.
+    """
+    xyz = xyz.detach()
+    new_xyz = new_xyz.detach()
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    ct = torch.float64 if xyz.dtype == torch.float64 else torch.float32
+    # made on the device: no copy from the host
+    r2 = torch.full((), radius * radius, dtype=ct, device=xyz.device)
+    xyz = xyz.to(ct)
+    new_xyz = new_xyz.to(ct)
+    chunk = min(chunk, m)
+    m_pad = -(-m // chunk) * chunk
+    if m_pad != m:
+        pad = torch.zeros(b, m_pad - m, 3, dtype=ct, device=xyz.device)
+        new_xyz = torch.cat([new_xyz, pad], dim=1)
+    j = torch.arange(n, dtype=torch.int32, device=xyz.device)
+    slot = torch.arange(nsample, device=xyz.device)
+    outs = []
+    for start in range(0, m_pad, chunk):
+        centres = new_xyz[:, start:start + chunk]
+        if ct == torch.float64:
+            d2 = _sq3_sum(centres[:, :, None, :] - xyz[:, None, :, :])
+        else:
+            d2 = _pairwise_d2(centres, xyz)
+        mask = d2 < r2
+        key = torch.where(mask, 2 * n - j, n - j)
+        idx = torch.topk(key, nsample, dim=-1).indices.to(torch.int32)
+        cnt = mask.sum(dim=-1)
+        outs.append(torch.where(slot < cnt[..., None], idx, idx[..., :1]))
+    return torch.cat(outs, dim=1)[:, :m]
 
 
 def ball_query_stratified(

@@ -22,6 +22,7 @@ import logging
 import math
 import os
 import pathlib
+import re
 import sys
 import typing as tp
 
@@ -255,16 +256,48 @@ def save_checkpoint(path, model: torch.nn.Module,
     os.replace(tmp, path)
 
 
+# tensor names only the reference implementation's modules carry
+# (`pt_utils.SharedMLP`'s layers, PointNet++'s `mlp_module`)
+_REFERENCE_NAME = re.compile(r"(^|\.)mlp_module\.|\.layer\d+\.conv\.weight$")
+
+
+def _refuse_reference(path, state):
+    """Exit with the way to convert it if `state`, a loaded torch
+    checkpoint, is one the reference implementation wrote: a VoteNet
+    trainer's ``{"model_state_dict", ...}``, or a GroupFree3D
+    ``{"epoch", "model", "optimizer", "scheduler"}`` or a bare state_dict
+    under the reference's tensor names."""
+    if not isinstance(state, dict):
+        return
+    weights = state.get("model_state_dict", state.get("model", state))
+    if "model_state_dict" in state or (
+            isinstance(weights, dict)
+            and any(_REFERENCE_NAME.search(str(k)) for k in weights)):
+        raise SystemExit(
+            f"{path} is a checkpoint of the reference implementation;"
+            " convert it first with python -m"
+            " backtoreality_tpu_torch.tools.torch_import"
+            f" {path} --model {{votenet,votenet_da,votenet_da_jitter,"
+            "groupfree,groupfree_da}} --out OUT, then pass OUT (and"
+            " --query_mode exact)")
+
+
 def load_checkpoint(path) -> dict:
-    """The dict written by :func:`save_checkpoint`, on the CPU."""
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """The dict written by :func:`save_checkpoint` (or a ``torch.save`` of
+    a state_dict), on the CPU. A checkpoint of the reference
+    implementation is refused, with the command that converts it."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    _refuse_reference(path, state)
+    return state
 
 
 def load_weights(path) -> tuple[dict, int | None]:
     """(state_dict, epoch) from any of the three checkpoint kinds, told
     apart by their leading bytes: a JAX package checkpoint (msgpack,
     gzipped or not; through `bridge`), a ``torch.save`` of a state_dict
-    (epoch None), or a training checkpoint of :func:`save_checkpoint`."""
+    (epoch None), or a training checkpoint of :func:`save_checkpoint`. A
+    checkpoint of the reference implementation is refused, with the
+    command that converts it."""
     with open(path, "rb") as f:
         head = f.read(2)
     if head != b"PK":  # torch.save writes a zip archive

@@ -16,7 +16,10 @@ Checkpoints are the JAX package's msgpack checkpoints (gzipped or not),
 checkpoints of ``train/votenet.py``; ``common.load_weights`` tells them
 apart. A checkpoint must cover every entry of the graph asked for:
 one trained with another graph is refused rather than scored with
-fresh weights.
+fresh weights. A checkpoint of the reference implementation is converted
+first by ``tools.torch_import`` (one passed as it is is refused, with that
+command) and scored with ``--query_mode exact``, the reference's first-k
+grouping it was trained with.
 
 ``--bf16`` computes in bfloat16 over the float32 parameters (``--f32_tail
 N``: the backbone's last N stages in float32). Before scoring, the BN
@@ -31,6 +34,8 @@ Usage:
       --checkpoint_path log/checkpoint.pt --data_root data [...]
   python -m backtoreality_tpu_torch.train.evaluate --model groupfree \
       --checkpoint_path log_gf/ckpt_epoch_last.tar --data_root data [...]
+  python -m backtoreality_tpu_torch.train.evaluate --model votenet \
+      --checkpoint_path imported.pt --query_mode exact --data_root data
 """
 
 from __future__ import annotations
@@ -86,7 +91,10 @@ def add_common_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--no_height", action="store_true")
     parser.add_argument("--use_color", action="store_true")
     parser.add_argument("--query_mode", default="stratified",
-                        choices=["stratified"])
+                        choices=["stratified", "exact"],
+                        help="exact: the reference's first-k neighbours"
+                             " in index order, which reference-trained"
+                             " checkpoints expect")
     parser.add_argument("--fps_candidates", type=int, default=None,
                         help="subset-FPS at SA1: sample from the first"
                              " K (pre-shuffled) points")

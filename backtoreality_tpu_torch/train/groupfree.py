@@ -28,9 +28,10 @@ the evaluation, as the JAX loop recalibrates a copy of its state.
 
 Flag names and defaults are the JAX package's (`train_GF_FSB.py:23-103`).
 Not ported, and so refused by the parser: ``--num_devices``,
-``--multihost``, ``--guard_every_steps``, ``--profile_dir``,
-``--ram_cache_gb`` (the datasets keep their default RAM cache of 8 GiB)
-and ``--query_mode exact``.
+``--multihost``, ``--guard_every_steps``, ``--profile_dir`` and
+``--ram_cache_gb`` (the datasets keep their default RAM cache of 8 GiB).
+``--query_mode exact`` groups by the reference's first-k query, the mode
+a checkpoint imported by ``tools.torch_import`` was trained in.
 
 Usage:
   python -m backtoreality_tpu_torch.train.gf_fsb --data_root D \
@@ -148,7 +149,10 @@ def add_flags(parser: argparse.ArgumentParser):
                         default=[0.25, 0.5], nargs="+")
     parser.add_argument("--rng_seed", type=int, default=0)
     parser.add_argument("--query_mode", default="stratified",
-                        choices=["stratified"])
+                        choices=["stratified", "exact"],
+                        help="exact: the reference's first-k neighbours"
+                             " in index order, which reference-trained"
+                             " checkpoints expect")
     parser.add_argument("--fps_candidates", type=int, default=None,
                         help="subset-FPS at SA1: sample from the first"
                              " K (pre-shuffled) points")

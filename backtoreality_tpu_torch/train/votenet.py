@@ -21,6 +21,9 @@ Before each evaluation the BN running statistics are recalibrated over
 and put back after it: training goes on from the statistics it had, as
 the JAX loop's, which recalibrates a copy of its state.
 
+``--query_mode exact`` groups by the reference's first-k query, which a
+checkpoint converted by ``tools.torch_import`` was trained with.
+
 Flag names and defaults are the JAX package's. Not ported, and so
 refused by the parser: ``--multihost``, ``--num_devices``,
 ``--profile_dir``, ``--guard_every_steps`` and ``--ram_cache_gb`` (the
@@ -91,7 +94,10 @@ def add_common_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--eval_freq", type=int, default=10)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--query_mode", default="stratified",
-                        choices=["stratified"])
+                        choices=["stratified", "exact"],
+                        help="exact: the reference's first-k neighbours"
+                             " in index order, which reference-trained"
+                             " checkpoints expect")
     parser.add_argument("--fps_candidates", type=int, default=None,
                         help="subset-FPS at SA1: sample from the first"
                              " K (pre-shuffled) points")
@@ -347,7 +353,7 @@ def _train_loop_da(flags, recipe):
         # `train_Votenet_BR_CenterRefine.py:213-218`)
         state, ckpt_epoch = common.load_weights(flags.checkpoint_path)
         common.partial_restore(model, state, log=logger.info)
-        logger.info("grafted checkpoint %s (epoch %d)",
+        logger.info("grafted checkpoint %s (epoch %s)",
                     flags.checkpoint_path, ckpt_epoch)
     history = ScalarHistory(flags.log_dir)
 

@@ -110,10 +110,32 @@ gated on two steps from one state giving bitwise-equal parameters.
    (``evidence/round5/gflad/f32_metrics.jsonl``); fails unless the mean
    loss over epochs 40-49 lies within 0.67-1.5 times the JAX run's and
    mAP@0.25 at epoch 49 reaches 0.30.
-8. Print each phase's seconds, the card's name and power limit, one JSON
+8. ``--query_mode exact``, the reference's first-k query (plain PyTorch,
+   ``ops.ball_query``): at the five VoteNet layers' shapes (B=8,
+   N=40000) and GroupFree3D's SA1 (N=50000) on the card against the same
+   call on the CPU, equal except at centres whose first differing slot
+   holds a point within 1e-5 r^2 of the radius (counted), timed beside K3
+   at the same shape, with its peak memory. The reference's initial
+   checkpoints in the repo (``evidence/round5/{wsb,br,gf}/
+   ref_init_checkpoint.tar.gz``) converted by the port's
+   ``tools.torch_import`` CLI, each restored into its graph with no entry
+   left fresh. ``evaluate --query_mode exact`` serving WSB's init
+   (VoteNet, B=8, N=40000) and GF's (2 decoder layers, feed-forward 128,
+   height, N=50000): FPS 5 and 4 launches a forward, K3 and K4 none; a
+   batch timed. Then the round-5 system-parity pairs (WSB, BR,
+   CenterRefine, GF) on the ``parity`` and ``br`` fixtures of the port's
+   ``tools.parity_fixture``, each recipe's ``main`` with the JAX leg's
+   flags (held to its ``ours_config.json``), WSB, BR and GF from the
+   imported inits, CenterRefine from scratch, for 51, 30, 30 and 51
+   epochs; ``tools.parity_report`` against the reference loop's history;
+   fails unless the late ratio (the mean train loss over the last 11
+   matched epochs over the reference's) lies within 0.85-1.15, printed
+   beside the JAX leg's, with the mAP rows (not gated).
+9. Print each phase's seconds, the card's name and power limit, one JSON
    line with every kernel's numbers (times summed over the VoteNet FSB
-   training path's shapes; launches by path, the GF paths included), and
-   as the last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+   training path's shapes; launches by path, the GF and exact paths
+   included), and as the last line ``{"ok": true, "device": {"platform":
+   "gpu", ...}}``.
 
 It exits nonzero without a CUDA device, and imports nothing of JAX.
 ``--kernels_only`` stops after phase 2 and prints its records as one JSON
@@ -123,6 +145,7 @@ line (to time two trees' kernels in one run; it is not a pass).
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import pathlib
@@ -2028,6 +2051,381 @@ def gf_learning_check(tmp, counters):
                 map50=ev["mAP@0.5"])
 
 
+# ---------------------------------------------------------------------------
+# --query_mode exact: the reference's first-k query, reference checkpoints
+# imported, and the round-5 system-parity pairs
+# ---------------------------------------------------------------------------
+
+# the exact query at the card against the CPU: a centre may differ only
+# where, at its first differing slot, one of the two indices lies within
+# this share of r^2 from the radius (the expanded form's f32 products round
+# differently in the card's and the CPU's matrix products)
+EXACT_GAP_REL = 1e-5
+REF_INITS = {"wsb": "votenet", "br": "votenet_da", "gf": "groupfree"}
+# the imported GroupFree3D init's widths (evidence/round5/gf/ours_config.json)
+GF_INIT_FLAGS = ["--num_decoder_layers", "2", "--dim_feedforward", "128",
+                 "--use_height"]
+# the round-5 system-parity pairs (evidence/round5/queue/s1_wsb_ours.sh,
+# s3_br_ours.sh, s4_cr_ours.sh, s8_gf_ours.sh; their --guard_every_steps 0
+# dropped, the port has no guard): fixture kind, entry point, flags, the
+# imported init it starts from (CenterRefine from scratch, as the JAX leg
+# did: its reference init is not in the repo), epochs run. WSB and GF run
+# the first 51 of their 125: neither schedule reads --max_epoch (WSB decays
+# its rate at 80/120 and BN every 20 epochs, GF steps at 280/340)
+PAIR_BR_FLAGS = ["--num_point", "1500", "--num_target", "16",
+                 "--batch_size", "8", "--eval_freq", "10", "--seed", "0",
+                 "--query_mode", "exact"]
+PAIRS = {
+    "wsb": ("parity", "votenet_wsb", [
+        "--num_point", "2500", "--num_target", "32", "--batch_size", "8",
+        "--eval_freq", "25", "--seed", "0", "--query_mode", "exact"],
+        "wsb", 51),
+    "br": ("br", "votenet_br", PAIR_BR_FLAGS + ["--center_jitter", "0.1"],
+           "br", 30),
+    "cr": ("br", "votenet_br_center_refine",
+           PAIR_BR_FLAGS + ["--center_jitter", "0.5"], None, 30),
+    "gf": ("parity", "gf_fsb", [
+        "--num_point", "2500", "--num_target", "32", "--batch_size", "8",
+        *GF_INIT_FLAGS, "--val_freq", "25", "--rng_seed", "0",
+        "--query_mode", "exact"], "gf", 51),
+}
+PAIR_LATE = 11  # the late ratio's epochs: the last 11 matched
+PAIR_BAND = (0.85, 1.15)
+# flags whose values differ from the JAX leg's by design: paths, the span,
+# the start (the JAX legs of BR and GF started fresh; CenterRefine's second
+# segment resumed)
+PAIR_OWN_FLAGS = {"data_root", "val_data_root", "source_data_root",
+                  "log_dir", "checkpoint_path", "max_epoch", "resume",
+                  "device"}
+
+
+def exact_query_phase(calls, bq, header):
+    """The plain exact ball query (``ops.ball_query``, first k in index
+    order) on the card against the same call on the CPU at each shape of
+    `calls` (label, xyz, centres, radius, nsample): equal except at points
+    within EXACT_GAP_REL of r^2 from the radius, whose centres are
+    counted; its time (CUDA events) beside K3's at the same shape and
+    beside its bound (the distance tests this data needs, as K3's), and
+    the peak memory of one call. Returns the records."""
+    import torch
+
+    print(f"[exact query] ops.ball_query on the card against the CPU; K3"
+          f" (the stratified kernel) at the same shape  | {header}")
+    records = []
+    for label, xyz, ctr, radius, nsample in calls:
+        b, n, _ = xyz.shape
+        m = ctr.shape[1]
+        want = bq.ball_query(xyz.cpu(), ctr.cpu(), radius, nsample)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = bq.ball_query(xyz, ctr, radius, nsample)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        got = got.cpu()
+        require(got.dtype == torch.int32 and got.shape == want.shape,
+                f"exact query {label}: {got.dtype} {tuple(got.shape)}")
+        rows = (got != want).any(-1).nonzero(as_tuple=True)
+        gap_rel = 0.0
+        if rows[0].numel():
+            first = (got[rows] != want[rows]).int().argmax(-1)
+            pts = xyz.cpu().double()
+            ctrs = ctr.cpu()[rows].double()
+            r2 = radius * radius
+            gaps = []
+            for idx in (got[rows], want[rows]):
+                j = idx.gather(1, first[:, None])[:, 0].long()
+                d2 = ((pts[rows[0], j] - ctrs) ** 2).sum(-1)
+                gaps.append((d2 - r2).abs() / r2)
+            gap = torch.minimum(*gaps)
+            gap_rel = gap.max().item()
+            require(gap_rel <= EXACT_GAP_REL,
+                    f"exact query {label}: a centre differs {gap_rel:.2e}"
+                    f" r^2 from the radius, beyond {EXACT_GAP_REL}")
+        # tests this data needs: each centre scans up to its last slot's
+        # hit, or every point where it has fewer hits than slots (its
+        # real hits rise strictly; fill slots repeat the first)
+        full = want[..., -1] > want[..., -2]
+        tests = torch.where(full, want[..., -1].long() + 1, n).sum().item()
+        bnd, by = bound_ms(BQ_OPS_PER_TEST * tests,
+                           b * n * 12 + b * m * 12 + b * m * nsample * 4)
+        exact_ms = cuda_ms(lambda: bq.ball_query(xyz, ctr, radius, nsample),
+                           reps=5, ahead=True)
+        k3_ms = cuda_ms(lambda: bq._ball_query_stratified_cuda(
+            xyz, ctr, radius, nsample), reps=5, ahead=True)
+        rec = dict(shape=label, b=b, n=n, m=m, nsample=nsample,
+                   radius=radius, boundary_centres=int(rows[0].numel()),
+                   max_gap_rel=gap_rel, ms=exact_ms, k3_ms=k3_ms,
+                   tests_needed=tests, bound_ms=bnd, bound_by=by,
+                   peak_mib=peak)
+        records.append(rec)
+        print(f"  {label:9s} B={b} N={n} M={m} S={nsample} r={radius}:"
+              f" equal but {rec['boundary_centres']} centres at the radius"
+              f" (max {gap_rel:.2e} r^2); exact {exact_ms:.3f} ms, K3"
+              f" {k3_ms:.4f} ms ({exact_ms / k3_ms:.1f}x), bound"
+              f" {bnd:.4f} ms ({by}, {tests} tests needed), peak"
+              f" {peak:.1f} MiB")
+    return records
+
+
+def torch_import_phase(tmp):
+    """The reference's initial checkpoints in the repo, gunzipped and
+    converted by the port's ``tools.torch_import`` CLI; each loads into its
+    graph through ``restore_weights`` with no entry left fresh (it refuses
+    otherwise). Returns {name: converted path}."""
+    import gzip
+
+    from backtoreality_tpu_torch.tools import torch_import
+    from backtoreality_tpu_torch.train import common, evaluate, groupfree
+
+    from backtoreality_tpu_torch.data import get_config
+
+    cfg = get_config("scannet_md40")
+    out = {}
+    for name, model in REF_INITS.items():
+        src = pathlib.Path(tmp) / f"ref_{name}.tar"
+        with gzip.open(ROOT / "evidence/round5" / name
+                       / "ref_init_checkpoint.tar.gz") as f:
+            src.write_bytes(f.read())
+        out[name] = pathlib.Path(tmp) / f"ref_{name}.pt"
+        leaves, epoch = torch_import.main([str(src), "--model", model,
+                                           "--out", str(out[name])])
+        if model == "groupfree":
+            flags = groupfree.add_flags(argparse.ArgumentParser()).parse_args(
+                GF_INIT_FLAGS)
+            graph = groupfree.build_model(flags, cfg)
+        else:
+            flags = evaluate.add_common_flags(
+                argparse.ArgumentParser()).parse_args([])
+            graph = evaluate.build_model(flags, cfg, "plain" if model ==
+                                         "votenet" else "da")
+        log = []
+        common.restore_weights(graph, out[name], model, log=log.append)
+        entries = len(graph.state_dict())
+        print(f"[torch_import] {name} ({model}): {leaves} parameter tensors,"
+              f" epoch {epoch}; {entries} entries restored, none fresh: "
+              + "; ".join(line for line in log if "partial" in line))
+    return out
+
+
+def check_exact_counts(label, launches, fps_per_forward, forwards):
+    """Launches on an exact-mode path: FPS `fps_per_forward` a forward, no
+    stratified ball query and no stratified grouping (the exact query and
+    the gather are plain PyTorch)."""
+    want = {k: 0 for k in launches}
+    want["fps"] = fps_per_forward * forwards
+    for name, n in want.items():
+        require(launches[name] == n,
+                f"{label}: {name} launched {launches[name]} times, expected"
+                f" {n} ({forwards} forwards in exact mode)")
+
+
+def exact_serving_phase(scans, gf_scans, inits, cfg, counters, header):
+    """``evaluate --query_mode exact`` on the imported reference inits:
+    VoteNet (WSB's) at the CLI defaults (B=8, N=40000, FPS over the full
+    cloud) on the 16 VoteNet scans, GroupFree3D (GF's, at its widths:
+    2 decoder layers, feed-forward 128, height) at N=50000 on the 16 GF
+    scans; launch counts (FPS 5 and 4 a forward, K3 and K4 none), finite
+    mAP, then a batch's forward timed (CUDA events), peak memory. Returns
+    the launches by path."""
+    import torch
+
+    from backtoreality_tpu_torch.data.dataset import DetectionDataset
+    from backtoreality_tpu_torch.data.loader import DetectionDataLoader
+    from backtoreality_tpu_torch.train import evaluate, groupfree
+
+    batches = math.ceil(NUM_SCANS / B)
+    launches = {}
+    for path, model_flag, ckpt, root, extra, fps_per_forward in (
+            ("serving_exact", "votenet", inits["wsb"], scans,
+             ["--num_point", str(N)], 5),
+            ("gf_serving_exact", "groupfree", inits["gf"], gf_scans,
+             GF_INIT_FLAGS, 4)):
+        args = ["--model", model_flag, "--checkpoint_path", str(ckpt),
+                "--query_mode", "exact", "--data_root", str(root), "--split",
+                "all", "--batch_size", str(B), "--device", "cuda", *extra]
+        reset(counters)
+        t0 = time.perf_counter()
+        results = evaluate.main(args)
+        secs = time.perf_counter() - t0
+        launches[path] = read_counts(counters)
+        print(f"[serving path: {model_flag} exact] evaluate.main --query_mode"
+              f" exact over {NUM_SCANS} scans in {secs:.1f} s; launches"
+              f" {launches[path]} over {batches} batches")
+        check_exact_counts(path, launches[path], fps_per_forward, batches)
+        for (prefix, t), metrics in results.items():
+            require(math.isfinite(metrics["mAP"]) and math.isfinite(
+                metrics["AR"]), f"{path}: non-finite mAP @ {t}")
+            print(f"  [{prefix or 'votenet'}] mAP@{t} {metrics['mAP']:.4f}"
+                  f"  AR@{t} {metrics['AR']:.4f}")
+        # a batch's forward, timed, with the same weights (both inits take
+        # the height feature)
+        sub = argparse.ArgumentParser()
+        if model_flag == "votenet":
+            flags = evaluate.add_common_flags(sub).parse_args(
+                ["--query_mode", "exact"])
+            model = evaluate.build_model(flags, cfg)
+            n, key = N, "center"
+        else:
+            flags = groupfree.add_flags(sub).parse_args(
+                [*GF_INIT_FLAGS, "--query_mode", "exact"])
+            model = groupfree.build_model(flags, cfg)
+            n, key = N_GF, "last_center"
+        model.load_state_dict(torch.load(ckpt, weights_only=True))
+        model.cuda().eval()
+        ds = DetectionDataset(cfg, root, split="all", num_points=n,
+                              use_height=True,
+                              gf_labels=model_flag == "groupfree")
+        pc = torch.from_numpy(next(iter(DetectionDataLoader(
+            ds, B, shuffle=False, prefetch=0)))["point_clouds"]).cuda()
+        with torch.inference_mode():
+            out = model(pc)
+            require(out[key].shape[:2] == (B, flags.num_target)
+                    and bool(torch.isfinite(out[key]).all()),
+                    f"{path}: forward output not finite or misshapen")
+            torch.cuda.reset_peak_memory_stats()
+            fwd_ms = cuda_ms(lambda: model(pc), reps=10, warmup=2)
+            peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[forward] {model_flag} exact B={B} N={n}: {fwd_ms:.3f} ms per"
+              f" batch (median of 10), {B / fwd_ms * 1e3:.1f} scenes/s, peak"
+              f" {peak_gb:.2f} GiB  | {header}")
+        del model, out
+    return launches
+
+
+def _jsonl(path):
+    return [json.loads(line) for line in
+            pathlib.Path(path).read_text().splitlines() if line.strip()]
+
+
+def _no_obj_dir(parent, prefix):
+    """A new directory under `parent` whose path holds no ``obj``: the
+    dataset reads a path with ``obj`` as virtual data, which draws its
+    centre jitter from another table (the JAX legs' fixtures were under
+    /tmp/parity and /tmp/br)."""
+    while True:
+        path = pathlib.Path(tempfile.mkdtemp(dir=parent, prefix=prefix))
+        if "obj" not in str(path):
+            return path
+
+
+def parity_pairs_phase(tmp, inits, counters, header):
+    """The round-5 system-parity pairs run by the port on the card: the
+    ``parity`` and ``br`` fixtures written by the port's
+    ``tools.parity_fixture``, then each recipe's ``main`` with the JAX
+    leg's flags (checked against ``ours_config.json``), from the imported
+    reference init where PAIRS names one; ``tools.parity_report`` against
+    the reference loop's history; the late ratio (the port's mean train
+    loss over the last PAIR_LATE matched epochs over the reference's
+    there) beside the JAX leg's, gated on PAIR_BAND; the mAP rows beside
+    the reference's and the JAX leg's (not gated: 12 val scans). Returns
+    the launches by pair."""
+    import io
+    import shutil
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from backtoreality_tpu_torch.tools import parity_fixture, parity_report
+
+    root = _no_obj_dir(tmp, "pairs_")
+    fixtures = {}
+    for kind in ("parity", "br"):
+        t0 = time.perf_counter()
+        parts = parity_fixture.write_fixture(kind, root / kind)
+        fixtures[kind] = {p.name: p for p in parts}
+        print(f"[parity pairs] fixture {kind}: "
+              + ", ".join(f"{p.name} {len(list(p.glob('*_vert.npy')))}"
+                          for p in parts)
+              + f" scans in {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for pair, (kind, entry, flags, init, epochs) in PAIRS.items():
+        ev = ROOT / "evidence/round5" / pair
+        fx = fixtures[kind]
+        log = root / f"{pair}_log"
+        args = ["--data_root", str(fx["train" if kind == "parity" else
+                                       "real"]),
+                "--val_data_root", str(fx["val"]), "--train_split", "all",
+                "--val_split", "all", *flags, "--max_epoch", str(epochs),
+                "--log_dir", str(log), "--device", "cuda"]
+        if kind == "br":
+            args += ["--source_data_root", str(fx["virtual"])]
+        if init:
+            args += ["--checkpoint_path", str(inits[init])]
+        module = importlib.import_module(
+            f"backtoreality_tpu_torch.train.{entry}")
+        reset(counters)
+        t0 = time.perf_counter()
+        module.main(args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[f"pair_{pair}"] = got = read_counts(counters)
+        # the JAX leg's flags, but for paths, span and start
+        mine = json.loads((log / "config.json").read_text())
+        theirs = json.loads((ev / "ours_config.json").read_text())
+        differ = {k: (mine[k], theirs[k]) for k in mine
+                  if k in theirs and k not in PAIR_OWN_FLAGS
+                  and mine[k] != theirs[k]}
+        require(not differ, f"pair {pair}: flags differ from the JAX leg's"
+                            f" {differ}")
+        unported = sorted(k for k in theirs if k not in mine)
+        steps = epochs * (40 // B)
+        evals = epochs // (mine.get("eval_freq") or mine["val_freq"])
+        fwd = (2 * steps if kind == "br" else steps) + evals * math.ceil(
+            12 / B)
+        check_exact_counts(f"pair {pair}", got,
+                           4 if pair == "gf" else 5, fwd)
+        # the reference loop's history and the JAX leg's metrics, as the
+        # report reads them
+        ref_dir, jax_dir = root / f"{pair}_ref", root / f"{pair}_jax"
+        ref_dir.mkdir()
+        jax_dir.mkdir()
+        shutil.copy(ev / "ref_history.jsonl", ref_dir / "history.jsonl")
+        shutil.copy(ev / "ours_metrics.jsonl", jax_dir / "metrics.jsonl")
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            report = parity_report.main(["--ref_dir", str(ref_dir),
+                                         "--ours_dir", str(log)])
+        jax_report = parity_report.build_report(str(ref_dir), str(jax_dir))
+        rows = report["loss"]
+        require(len(rows) == epochs and all(
+            math.isfinite(r["ours_loss"]) for r in rows),
+            f"pair {pair}: {len(rows)} matched epochs of {epochs}")
+        late = rows[-PAIR_LATE:]
+        epochs_late = [r["epoch"] for r in late]
+        ratio = (sum(r["ours_loss"] for r in late)
+                 / sum(r["ref_loss"] for r in late))
+        jax_rows = {r["epoch"]: r for r in jax_report["loss"]}
+        jax_same = (sum(jax_rows[e]["ours_loss"] for e in epochs_late)
+                    / sum(jax_rows[e]["ref_loss"] for e in epochs_late))
+        jax_tail = jax_report["loss"][-PAIR_LATE:]
+        jax_own = (sum(r["ours_loss"] for r in jax_tail)
+                   / sum(r["ref_loss"] for r in jax_tail))
+        per_epoch = [r["ours_loss"] / r["ref_loss"] for r in rows]
+        start = f"the imported {init} init" if init else "scratch"
+        print(f"[parity pair: {pair}] {entry}.main, {epochs} epochs of"
+              f" {40 // B} steps from {start} in {secs:.1f} s; launches"
+              f" {got}; JAX-leg flags not in the port: {unported}")
+        print("  matched epochs, port / reference loop (parity_report):")
+        print("    " + buf.getvalue().rstrip().replace("\n", "\n    "))
+        print(f"  late ratio (epochs {epochs_late[0]}-{epochs_late[-1]}):"
+              f" port {ratio:.3f}, JAX leg {jax_same:.3f} over the same"
+              f" epochs, {jax_own:.3f} over its own last {PAIR_LATE}"
+              f" (epochs {jax_tail[0]['epoch']}-{jax_tail[-1]['epoch']});"
+              f" port's per-epoch ratios {min(per_epoch):.3f}-"
+              f"{max(per_epoch):.3f}  | {header}")
+        jax_map = {r["step"]: r["mAP"] for r in _jsonl(jax_dir /
+                                                        "metrics.jsonl")
+                   if r.get("kind") == "eval"}
+        for r in report["eval"]:
+            print(f"  epoch {r['epoch']} mAP@0.25: port {r['ours_mAP']:.4f},"
+                  f" reference {r['ref_mAP']:.4f}, JAX leg"
+                  f" {jax_map.get(r['epoch'], float('nan')):.4f}")
+        require(PAIR_BAND[0] <= ratio <= PAIR_BAND[1],
+                f"pair {pair}: late ratio {ratio:.3f} outside {PAIR_BAND}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2052,7 +2450,9 @@ def main() -> int:
     from backtoreality_tpu_torch.data.loader import DetectionDataLoader
     from backtoreality_tpu_torch.data.synthetic import write_synthetic_scans
     from backtoreality_tpu_torch.ops import _build
-    from backtoreality_tpu_torch.ops import ball_query as bq
+    # the module: the package exports its exact query under the same
+    # name
+    bq = importlib.import_module("backtoreality_tpu_torch.ops.ball_query")
     from backtoreality_tpu_torch.ops import fps
     from backtoreality_tpu_torch.ops import grouping
     from backtoreality_tpu_torch.train import evaluate
@@ -2189,6 +2589,8 @@ def main() -> int:
     check_localize("sa3_xyz_only", x, None, c, r, s, bq, grouping, reps=0)
     check_half_refused(ep["sa1_xyz"], ep["sa1_features"], ep["sa2_xyz"],
                        fps, bq, grouping, counters)
+    # the exact query's shapes: those of the five layers
+    exact_calls = [(label, x, c, r, s) for label, x, _, c, r, s in sa_calls]
     del ep
     # GroupFree3D's fixture: 8 objects of 5500 points and 8000 floor points,
     # 52000 a scan, so the 50000-point draw takes no point twice
@@ -2296,6 +2698,23 @@ def main() -> int:
     lap("gf br/center refine")
     gf_learning_check(tmp.name, counters)
     lap("gf learning check")
+
+    # 8. --query_mode exact: the exact query at the layers' shapes (and GF's
+    # SA1 at N=50000), the reference's inits imported, both detectors served
+    # from them, and the round-5 parity pairs
+    gf_xyz = gf_first_batch(gf_scans, cfg, use_height=False)["point_clouds"]
+    gf_ctr = grouping.gather_points(gf_xyz, fps.furthest_point_sample(
+        gf_xyz, 2048))
+    exact_query_phase(exact_calls + [("gf_sa1", gf_xyz, gf_ctr, 0.2, 64)],
+                      bq, header)
+    lap("exact query")
+    inits = torch_import_phase(tmp.name)
+    lap("torch_import")
+    paths.update(exact_serving_phase(scans, gf_scans, inits, cfg, counters,
+                                     header))
+    lap("serving exact")
+    paths.update(parity_pairs_phase(tmp.name, inits, counters, header))
+    lap("parity pairs")
     tmp.cleanup()
 
     def by_path(name):

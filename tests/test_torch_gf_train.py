@@ -25,9 +25,9 @@ width 96), dropout 0 so that a train step is deterministic.
 * `gf_fsb.main` trains two epochs on a 2-scan fixture with
   ``--device cpu``, evaluates, writes checkpoints that `evaluate --model
   groupfree` loads, and resumes at the next epoch with the optimizer's
-  state and counts; `gf_wsb.main` trains an epoch; the unported flags
-  are refused, and so is a run of any recipe without a card unless the
-  CPU is asked for.
+  state and counts; `gf_wsb.main` trains an epoch, and so does
+  `gf_fsb.main --query_mode exact`; the unported flags are refused, and
+  so is a run of any recipe without a card unless the CPU is asked for.
 * `evaluate --model groupfree --device cpu` on a checkpoint written by
   the JAX package's `save_checkpoint` (its init, the last head made to
   find the objects of a 4-scan fixture; JAX mAP@0.25 above 0.02): mAP
@@ -330,12 +330,26 @@ def test_gf_wsb_trains(two_scans, tmp_path):
     assert math.isfinite(rows[1]["mAP"])
 
 
-@pytest.mark.parametrize("extra", [["--num_devices=1"],
-                                   ["--query_mode=exact"]])
+@pytest.mark.parametrize("extra", [["--num_devices=1"]])
 def test_gf_refuses_unported_flags(scans, tmp_path, extra):
     with pytest.raises(SystemExit):
         gf_fsb.main(_gf_args(scans, tmp_path / "log", 1)
                     + ["--device", "cpu", *extra])
+
+
+def test_gf_fsb_takes_query_mode_exact(two_scans, tmp_path):
+    """One epoch and an evaluation with the reference's first-k query in
+    every set-abstraction layer."""
+    log = tmp_path / "log"
+    model, _ = gf_fsb.main(_gf_args(two_scans, log, 1)
+                           + ["--device", "cpu", "--val_freq", "1",
+                              "--query_mode", "exact"])
+    rows = [json.loads(line) for line in
+            (log / "metrics.jsonl").read_text().splitlines()]
+    assert math.isfinite(rows[0]["loss"]) and math.isfinite(rows[1]["mAP"])
+    backbone = model.backbone_net
+    assert {getattr(backbone, f"sa{i}").query_mode
+            for i in range(1, 5)} == {"exact"}
 
 
 @pytest.mark.parametrize("extra", [
