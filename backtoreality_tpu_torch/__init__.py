@@ -16,7 +16,10 @@ models    The VoteNet detector.
 losses    The VoteNet FSB criterion.
 data      Dataset configs, detection datasets, host loaders (numpy).
 eval      Box geometry, NMS, AP evaluation (host-side numpy).
-train     The evaluation and VoteNet FSB training entry points.
+train     The evaluation and training entry points (VoteNet and
+          GroupFree3D, four recipes each), data-parallel over processes.
+parallel  The process group, the row split and the collectives of a
+          global-batch train step.
 bridge    JAX variables -> the port's state_dict.
 """
 

@@ -12,6 +12,12 @@ with the unbiased batch variance. The momentum is rounded to float32 and
 call-time ``bn_momentum``; :func:`set_bn_momentum` sets it on every
 BatchNorm of a model before a step, and :func:`bn_momentum_schedule` is
 the reference's epoch schedule.
+
+In a process group of W > 1 ranks (``parallel``) the train-mode moments
+are the global batch's, as the JAX package's on a device mesh: the local
+E[x] and E[x^2] are all-reduced (one collective a layer) and divided by
+W, the unbiased count is the local count times W, and the gradient flows
+through the collective.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from backtoreality_tpu_torch import parallel
 
 
 def bn_momentum_schedule(epoch: int, init: float = 0.5,
@@ -59,8 +67,15 @@ class BatchNorm(nn.Module):
             dims = tuple(range(x.dim() - 1))
             mean = xf.mean(dim=dims)
             mean2 = (xf * xf).mean(dim=dims)
-            var = torch.clamp(mean2 - mean * mean, min=0.0)
             count = xf.numel() // self.features
+            world = parallel.world()
+            if world > 1:
+                # the global batch's moments, as the JAX package's on a
+                # mesh (pmean); the gradient flows through the sum
+                mean, mean2 = parallel.all_reduce_sum(
+                    torch.stack([mean, mean2])) / world
+                count *= world
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             unbiased = var * (count / max(count - 1, 1))
             m = np.float32(self.momentum)
             keep = float(np.float32(1) - m)

@@ -1,5 +1,5 @@
-"""Shared training machinery: device, schedules, optimizers, checkpoints,
-logging.
+"""Shared training machinery: device, launch, schedules, optimizers,
+checkpoints, the preemption guard, logging.
 
 Counterpart of the parts of ``backtoreality_tpu/train/common.py`` that
 the ported recipes use: the reference's epoch-step learning rate and BN
@@ -8,9 +8,20 @@ schedule, Adam/AdamW with optax's defaults and an optional global-norm
 clip in optax's formula, GroupFree3D's AdamW with a decoder learning rate
 of its own, atomic checkpoints of the model and optimizer, the
 cross-stage partial restore (BR weights grafted into CenterRefine, the
-JAX package's checkpoints into the port), a metric meter and the train
-logger. Single process; the multi-host rendezvous and the preemption
-guard are not ported.
+JAX package's checkpoints into the port), a metric meter and the
+rank-aware train logger.
+
+Data parallelism (:func:`launch`): ``--num_devices N`` spawns N local
+ranks that split each global batch by rows; ``--multihost`` joins the
+process group the environment describes (``BTR_COORDINATOR``,
+``BTR_NUM_PROCESSES``, ``BTR_PROCESS_ID``, else torchrun's variables),
+each rank reading its own loader shard. Either way every rank computes
+the global batch's BN moments and loss (``parallel``), :func:`update`
+sums the gradients over the ranks before the optimizer step (and so
+before GroupFree3D's clip), and only rank 0 writes checkpoints and the
+config. :class:`PreemptionGuard` writes a host snapshot of the model and
+optimizer on SIGTERM. The JAX package's ``enable_compilation_cache`` has
+no counterpart: the kernels are built once, at first use.
 """
 
 from __future__ import annotations
@@ -23,13 +34,15 @@ import math
 import os
 import pathlib
 import re
+import signal
 import sys
+import time
 import typing as tp
 
 import numpy as np
 import torch
 
-from backtoreality_tpu_torch import bridge
+from backtoreality_tpu_torch import bridge, parallel
 from backtoreality_tpu_torch.nn.norm import (bn_momentum_schedule,
                                              set_bn_momentum)
 
@@ -46,6 +59,206 @@ def resolve_device(name: str | None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+# ---------------------------------------------------------------------------
+# Launch: one process, N spawned local ranks, or one rank of a group
+# ---------------------------------------------------------------------------
+
+
+def add_parallel_flags(parser):
+    """The operations flags of the JAX trainers, with their names,
+    defaults and help."""
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help="local devices to train on, one spawned rank"
+                             " each, splitting every --batch_size batch by"
+                             " rows (default: every visible card; 1 with"
+                             " --device cpu)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join the process group the environment"
+                             " describes (BTR_COORDINATOR,"
+                             " BTR_NUM_PROCESSES, BTR_PROCESS_ID, else"
+                             " torchrun's MASTER_ADDR/MASTER_PORT/RANK/"
+                             "WORLD_SIZE); --batch_size is per process")
+    parser.add_argument("--guard_every_steps", type=int, default=100,
+                        help="mid-epoch preemption-snapshot cadence in"
+                             " steps (0 disables; each snapshot is a"
+                             " blocking full-state host copy)")
+    parser.add_argument("--profile_dir", default=None,
+                        help="torch.profiler trace dir (traces host steps"
+                             " 10-15 of the run)")
+    parser.add_argument("--ram_cache_gb", type=float, default=8.0,
+                        help="per-dataset RAM cache budget for raw scan"
+                             " arrays (0 disables caching)")
+    return parser
+
+
+def cache_kw(flags) -> dict:
+    """The datasets' RAM cache from ``--ram_cache_gb`` (0 turns it off)."""
+    if flags.ram_cache_gb <= 0:
+        return dict(ram_cache=False)
+    return dict(ram_cache=True, ram_cache_bytes=int(flags.ram_cache_gb
+                                                    * 2**30))
+
+
+def num_devices(flags) -> int:
+    """``--num_devices``, by default every visible card (1 with --device
+    cpu). More than the visible cards raises: no device is dropped
+    silently."""
+    on_cpu = flags.device is not None and torch.device(
+        flags.device).type == "cpu"
+    visible = 0 if on_cpu or not torch.cuda.is_available() else (
+        torch.cuda.device_count())
+    n = flags.num_devices
+    if n is None:
+        return 1 if on_cpu else max(visible, 1)
+    if n < 1 or (not on_cpu and n > visible):
+        raise ValueError(f"--num_devices {n}, but {visible} CUDA device(s)"
+                         " are visible")
+    return n
+
+
+def init_multihost(device_name: str | None) -> torch.device:
+    """Join the process group the environment describes (the JAX
+    package's ``init_multihost``): ``BTR_NUM_PROCESSES``,
+    ``BTR_PROCESS_ID`` (default 0) and ``BTR_COORDINATOR`` (host:port),
+    else torchrun's ``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR`` and
+    ``MASTER_PORT``. A group of one needs no address. The rank's device
+    is the CPU with ``--device cpu``, else ``cuda:LOCAL_RANK``, or
+    without ``LOCAL_RANK`` the rank modulo the visible cards. The backend
+    follows the processes on this host (:func:`local_processes`).
+    Returns the device."""
+    env = os.environ
+    if "BTR_NUM_PROCESSES" in env:
+        world = int(env["BTR_NUM_PROCESSES"])
+        rank = int(env.get("BTR_PROCESS_ID", "0"))
+        address = env.get("BTR_COORDINATOR")
+    elif "WORLD_SIZE" in env:
+        world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
+        address = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+    else:
+        raise RuntimeError("--multihost needs BTR_NUM_PROCESSES (and"
+                           " BTR_PROCESS_ID, BTR_COORDINATOR) or torchrun's"
+                           " WORLD_SIZE, RANK, MASTER_ADDR and MASTER_PORT")
+    if address is None:
+        if world != 1:
+            raise RuntimeError("--multihost: BTR_COORDINATOR (host:port)"
+                               f" is needed for {world} processes")
+        address = f"127.0.0.1:{parallel.free_port()}"
+    device = resolve_device(device_name)
+    if device.type == "cuda":
+        index = int(env.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+        device = torch.device("cuda", index)
+        torch.cuda.set_device(device)
+    parallel.init(rank, world, address, device, local_processes())
+    return device
+
+
+def local_processes() -> int:
+    """The group's processes on this host, as the environment states it:
+    ``LOCAL_WORLD_SIZE`` (torchrun sets it), else ``BTR_LOCAL_PROCESSES``,
+    else 1 (a process a host). More of them than visible cards share a
+    card, and the group then runs over gloo (``parallel.backend``)."""
+    env = os.environ
+    return int(env.get("LOCAL_WORLD_SIZE",
+                       env.get("BTR_LOCAL_PROCESSES", "1")))
+
+
+def launch(run, flags, *args):
+    """Run ``run(flags, device, *args)`` as the flags ask, and return what
+    it returns; with several spawned ranks, None (the trained state is in
+    rank 0's checkpoint).
+
+    * ``--multihost``: this process is one rank of the group the
+      environment describes (:func:`init_multihost`).
+    * ``--num_devices N``, N > 1: N local ranks are spawned, rank r on
+      ``cuda:r`` (or the CPU with ``--device cpu``), each re-entering
+      `run`; every rank reads the whole global batch and keeps its rows.
+    * Otherwise this process alone, with no process group: the run is the
+      single-device run, bit for bit.
+    """
+    if flags.multihost:
+        device = init_multihost(flags.device)
+        try:
+            return run(flags, device, *args)
+        finally:
+            parallel.shutdown()
+    n = num_devices(flags)
+    if n == 1:
+        return run(flags, resolve_device(flags.device), *args)
+    if flags.batch_size % n:
+        raise ValueError(f"--batch_size {flags.batch_size} does not split"
+                         f" over --num_devices {n}")
+    spawn(_rank_main, n, run, flags, args)
+    return None
+
+
+def _rank_main(rank, world, address, run, flags, args):
+    """One spawned rank of :func:`launch`."""
+    make_deterministic()
+    if flags.device is not None and torch.device(flags.device).type == "cpu":
+        device = torch.device("cpu")
+    else:
+        device = resolve_device(f"cuda:{rank}")
+        torch.cuda.set_device(device)
+    parallel.init(rank, world, address, device, world)
+    try:
+        run(flags, device, *args)
+    finally:
+        parallel.shutdown()
+
+
+def spawn(fn, nprocs: int, *args, timeout: float | None = None,
+          meanwhile=None):
+    """Run ``fn(rank, nprocs, address, *args)`` in `nprocs` processes
+    (the ``spawn`` start method: CUDA does not survive a fork), `address`
+    a free localhost port for the group's rendezvous, and return what
+    ``meanwhile()`` returns, called here while they run (None without
+    it). SIGTERM sent to this process is passed on to every rank (each
+    one's guard saves, on rank 0). A rank that exits nonzero has the
+    others terminated, and this process raises SystemExit with its exit
+    code; ranks that outlast `timeout` seconds are killed, and it raises
+    SystemExit(124)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    address = f"127.0.0.1:{parallel.free_port()}"
+    procs = [ctx.Process(target=fn, args=(r, nprocs, address, *args))
+             for r in range(nprocs)]
+    deadline = None if timeout is None else time.monotonic() + timeout
+    for p in procs:
+        p.start()
+
+    def forward(signum, frame):
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+
+    previous = signal.signal(signal.SIGTERM, forward)
+    try:
+        result = meanwhile() if meanwhile else None
+        while True:
+            failed = [p.exitcode for p in procs if p.exitcode]
+            if failed or all(p.exitcode == 0 for p in procs):
+                break
+            if deadline is not None and time.monotonic() > deadline:
+                print(f"ranks killed at the {timeout} s limit",
+                      file=sys.stderr)
+                raise SystemExit(124)
+            time.sleep(0.2)
+        if failed:
+            forward(None, None)
+            for p in procs:
+                p.join()
+            # a rank killed by signal s reports -s; a shell reports 128 + s
+            raise SystemExit(failed[0] if failed[0] > 0 else 128 - failed[0])
+        return result
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+        for p in procs:  # still running only if this process failed
+            if p.is_alive():
+                p.kill()
+            p.join()
 
 
 def make_deterministic():
@@ -242,18 +455,95 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float):
 # ---------------------------------------------------------------------------
 
 
-def save_checkpoint(path, model: torch.nn.Module,
-                    optimizer: torch.optim.Optimizer, epoch: int):
-    """``torch.save({"epoch", "model", "optimizer"})``, written to a
-    temporary file and renamed into place, so a reader never sees half a
-    checkpoint."""
+def save_checkpoint(path, model: torch.nn.Module | dict,
+                    optimizer: torch.optim.Optimizer | dict, epoch: int,
+                    tmp_suffix: str = ".tmp"):
+    """``torch.save({"epoch", "model", "optimizer"})`` on rank 0 only (every
+    rank holds the same state), written to a temporary file (`tmp_suffix`
+    in place of the path's) and renamed into place, so a reader never sees
+    half a checkpoint. `model` and `optimizer` may be their
+    state_dicts."""
+    if parallel.rank() != 0:
+        return
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    payload = {"epoch": epoch, "model": model.state_dict(),
-               "optimizer": optimizer.state_dict()}
-    tmp = path.with_suffix(".tmp")
+    payload = {"epoch": epoch,
+               "model": model if isinstance(model, dict)
+               else model.state_dict(),
+               "optimizer": optimizer if isinstance(optimizer, dict)
+               else optimizer.state_dict()}
+    tmp = path.with_suffix(tmp_suffix)
     torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def _host_copy(obj, spare=None):
+    """A copy of `obj` (a state_dict: nested dicts and lists of tensors
+    and plain values) whose tensors lie on the host, the copies from a
+    card started without blocking into pinned memory (the caller
+    synchronizes once). `spare`, an earlier copy of the same structure,
+    lends its tensors where shape and dtype match."""
+    if torch.is_tensor(obj):
+        if not (torch.is_tensor(spare) and spare.shape == obj.shape
+                and spare.dtype == obj.dtype):
+            spare = torch.empty(obj.shape, dtype=obj.dtype,
+                                pin_memory=obj.is_cuda)
+        return spare.copy_(obj.detach(), non_blocking=True)
+    if isinstance(obj, dict):
+        spare = spare if isinstance(spare, dict) else {}
+        return {k: _host_copy(v, spare.get(k)) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        spare = spare if isinstance(spare, (list, tuple)) and len(
+            spare) == len(obj) else [None] * len(obj)
+        return type(obj)(_host_copy(v, s) for v, s in zip(obj, spare))
+    return obj
+
+
+class PreemptionGuard:
+    """Save-on-SIGTERM for preemptible workers (the JAX package's
+    ``PreemptionGuard``). :meth:`update` takes a host copy of the model's
+    and the optimizer's state: a state_dict holds the live tensors, which
+    the next ``optimizer.step()`` changes in place, so a guard that kept
+    references would save a later state than its snapshot. On SIGTERM
+    the newest snapshot is written with :func:`save_checkpoint` (rank 0
+    only) and the process exits with 143; ``--resume`` continues from it.
+    Two host copies are kept, the older one's memory reused by the next
+    snapshot, so a SIGTERM during an update finds a whole snapshot.
+    :meth:`close` puts the previous SIGTERM handler back."""
+
+    def __init__(self, ckpt_path, logger=None):
+        self.ckpt_path = ckpt_path
+        self.logger = logger
+        self.state = None
+        self.epoch = -1
+        self._spare = None
+        self._previous = signal.signal(signal.SIGTERM, self._handler)
+
+    def update(self, model: torch.nn.Module,
+               optimizer: torch.optim.Optimizer, epoch: int):
+        state = _host_copy({"model": model.state_dict(),
+                            "optimizer": optimizer.state_dict()},
+                           self._spare)
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        self._spare, self.state, self.epoch = self.state, state, epoch
+
+    def close(self):
+        signal.signal(signal.SIGTERM, self._previous)
+
+    def _handler(self, signum, frame):
+        # a second SIGTERM must not cut the save short
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        if self.state is not None:
+            if self.logger:
+                self.logger.info("SIGTERM: saving checkpoint at epoch %d",
+                                 self.epoch)
+            # a temporary file of its own: the signal may have come in the
+            # middle of the loop's save of the same path
+            save_checkpoint(self.ckpt_path, self.state["model"],
+                            self.state["optimizer"], self.epoch,
+                            tmp_suffix=".sigterm.tmp")
+        raise SystemExit(143)
 
 
 # tensor names only the reference implementation's modules carry
@@ -357,19 +647,26 @@ def restore_weights(model: torch.nn.Module, path, what: str,
 # ---------------------------------------------------------------------------
 
 
-def setup_logger(log_dir, name="btr"):
-    """File + stdout logger (`utils/logger.py:30-95` analog)."""
+def setup_logger(log_dir, name="btr", rank: int | None = None):
+    """Rank-aware file + stdout logger (`utils/logger.py:30-95` analog):
+    rank 0 (by default this process's) logs to stdout and
+    ``log_train.txt``, rank r > 0 to ``log_train.txt.rank{r}`` only."""
+    if rank is None:
+        rank = parallel.rank()
     logger = logging.getLogger(f"{name}.torch")
     logger.setLevel(logging.INFO)
     logger.handlers.clear()
     fmt = logging.Formatter(
         "[%(asctime)s %(name)s] %(message)s", datefmt="%H:%M:%S")
-    sh = logging.StreamHandler(sys.stdout)
-    sh.setFormatter(fmt)
-    logger.addHandler(sh)
+    if rank == 0:
+        sh = logging.StreamHandler(sys.stdout)
+        sh.setFormatter(fmt)
+        logger.addHandler(sh)
     if log_dir is not None:
         pathlib.Path(log_dir).mkdir(parents=True, exist_ok=True)
-        fh = logging.FileHandler(os.path.join(log_dir, "log_train.txt"))
+        suffix = "" if rank == 0 else f".rank{rank}"
+        fh = logging.FileHandler(os.path.join(log_dir,
+                                              f"log_train.txt{suffix}"))
         fh.setFormatter(fmt)
         logger.addHandler(fh)
     logger.propagate = False
@@ -385,13 +682,15 @@ def scalars(aux: dict) -> dict:
 def update(model, optimizer, bn_momentum, forward_loss) -> dict:
     """One training update: `forward_loss()` -> (loss, aux) runs in train
     mode (dropout on, BN running statistics moving with `bn_momentum`),
-    then one backward and one optimizer step. Returns the aux scalars (on
-    the device)."""
+    then one backward, the gradients summed over the ranks (each holds
+    the part that flows through its rows of the global loss) and one
+    optimizer step. Returns the aux scalars (on the device)."""
     model.train()
     set_bn_momentum(model, bn_momentum)
     loss, aux = forward_loss()
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    parallel.all_reduce_grads(model.parameters())
     optimizer.step()
     return scalars(aux)
 
@@ -478,7 +777,8 @@ class MetricMeter:
 
 
 def dump_config(log_dir, flags: dict):
-    if log_dir:
+    """``config.json`` in `log_dir`, from rank 0."""
+    if log_dir and parallel.rank() == 0:
         path = pathlib.Path(log_dir) / "config.json"
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(flags, indent=2, default=str))

@@ -27,9 +27,18 @@ every batch (the JAX package passes one fixed key), and put back after
 the evaluation, as the JAX loop recalibrates a copy of its state.
 
 Flag names and defaults are the JAX package's (`train_GF_FSB.py:23-103`).
-Not ported, and so refused by the parser: ``--num_devices``,
-``--multihost``, ``--guard_every_steps``, ``--profile_dir`` and
-``--ram_cache_gb`` (the datasets keep their default RAM cache of 8 GiB).
+Data parallelism as VoteNet's trainers (``common.launch``):
+``--num_devices N`` spawns N local ranks that split every batch by rows;
+``--multihost`` runs one rank of the group the environment describes on
+its own loader shard. Every rank computes the global batch's BN moments
+and criterion, the gradients are summed over the ranks before the clip,
+the learning rates follow the count of updates (the same on every rank),
+and each rank draws its dropout from the global RNG seeded by
+``--rng_seed`` plus its rank (rank 0's draws are the single device's).
+The preemption guard snapshots the state every ``--guard_every_steps``
+steps and after each epoch; ``--profile_dir`` traces host steps 10-15
+(the JAX loop parses the flag and never reads it); ``--ram_cache_gb``
+sizes the datasets' RAM cache.
 ``--query_mode exact`` groups by the reference's first-k query, the mode
 a checkpoint imported by ``tools.torch_import`` was trained in.
 
@@ -49,10 +58,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import pathlib
-import time
 
 import torch
 
+from backtoreality_tpu_torch import parallel
 from backtoreality_tpu_torch.data import get_config
 from backtoreality_tpu_torch.data.dataset import DetectionDataset
 from backtoreality_tpu_torch.data.loader import DetectionDataLoader, cycle
@@ -65,7 +74,9 @@ from backtoreality_tpu_torch.models.groupfree.transformer import \
     set_dropout_generator
 from backtoreality_tpu_torch.train import common
 from backtoreality_tpu_torch.train.common import model_args, to_device
-from backtoreality_tpu_torch.train.observability import ScalarHistory
+from backtoreality_tpu_torch.train.observability import (ScalarHistory,
+                                                         StepTimer,
+                                                         TraceWindow)
 
 __all__ = ["add_flags", "build_model", "loss_kwargs", "eval_prefixes",
            "make_train_step", "make_da_train_step", "recal_dropout",
@@ -176,7 +187,7 @@ def add_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; pass cpu to run"
                              " on the CPU)")
-    return parser
+    return common.add_parallel_flags(parser)
 
 
 def _input_dim(flags) -> int:
@@ -236,8 +247,9 @@ def make_train_step(model, optimizer, criterion, cfg, loss_kw, *,
                     jitter=False):
     """step(batch, bn_momentum) -> scalar aux tensors (on the device).
 
-    One train-mode forward (dropout on), the criterion, backward and an
-    optimizer step (which clips and sets its learning rates itself, see
+    One train-mode forward (dropout on), the criterion on the global
+    batch (``parallel.gather_rows``), backward and an optimizer step
+    (which clips and sets its learning rates itself, see
     `common.make_gf_optimizer`); BN running statistics move with
     `bn_momentum`. With `jitter`, the model also takes the batch's centre
     and class labels."""
@@ -245,7 +257,8 @@ def make_train_step(model, optimizer, criterion, cfg, loss_kw, *,
     def step(batch, bn_momentum):
         def forward_loss():
             end_points = model(*model_args(batch, jitter))
-            return criterion({**batch, **end_points}, cfg, **loss_kw)
+            return criterion(parallel.gather_rows({**batch, **end_points}),
+                             cfg, **loss_kw)
 
         return common.update(model, optimizer, bn_momentum, forward_loss)
 
@@ -265,6 +278,7 @@ def make_da_train_step(model, optimizer, cfg, loss_kw, *, jitter=False):
         def forward_loss():
             ep_S = {**batch_S, **model(*model_args(batch_S, jitter))}
             ep_T = {**batch_T, **model(*model_args(batch_T, jitter))}
+            ep_S, ep_T = parallel.gather_rows(ep_S), parallel.gather_rows(ep_T)
             if jitter:
                 return gf_losses.get_loss_DA_jitter(ep_S, ep_T, epoch, cfg,
                                                     **loss_kw)
@@ -294,29 +308,37 @@ def recal_dropout(model, seed: int = 0):
 
 def make_eval_step(model, criterion, cfg, loss_kw, prefixes, *,
                    jitter=False):
-    """step(batch) -> (the scored heads' predictions, scalar aux). The
-    jitter model takes the batch's centre and class labels here too."""
+    """step(batch, sizes=None) -> (the scored heads' predictions, scalar
+    aux). The jitter model takes the batch's centre and class labels here
+    too. With `sizes` (``--num_devices``: every rank's rows of the global
+    batch), the predictions and the criterion are the global batch's."""
     keys = [p + s for p in prefixes for s in EVAL_KEY_SUFFIXES]
 
-    def step(batch):
+    def step(batch, sizes=None):
         model.eval()
         with torch.no_grad():
-            outs = model(*model_args(batch, jitter))
-            _, aux = criterion({**batch, **outs}, cfg, **loss_kw)
+            outs = {**batch, **model(*model_args(batch, jitter))}
+            if sizes is not None:
+                outs = parallel.gather_rows(outs, sizes)
+            _, aux = criterion(outs, cfg, **loss_kw)
         return {k: outs[k] for k in keys}, common.scalars(aux)
 
     return step
 
 
-def evaluate(loader, eval_step, cfg, device, logger, flags, prefixes):
+def evaluate(loader, eval_step, cfg, device, logger, flags, prefixes,
+             split=False):
     """mAP/AR per (prefix, IoU threshold) over `loader`, and the eval
-    loss means."""
+    loss means. With `split` (``--num_devices``), each rank runs its rows
+    of every batch and scores the gathered predictions."""
     config_dict = dict(GF_EVAL_CONFIG_DICT, dataset_config=cfg)
     calcs = {(p, t): APCalculator(t, cfg.class2type)
              for p in prefixes for t in flags.ap_iou_thresholds}
     meter = common.MetricMeter()
     for batch in loader:
-        pred, aux = eval_step(to_device(batch, device))
+        rows, sizes = (parallel.shard_rows(batch, even=False) if split
+                       else (batch, None))
+        pred, aux = eval_step(to_device(rows, device), sizes)
         meter.update({k: v.item() for k, v in aux.items()})
         pred_np = {k: v.cpu().numpy() for k, v in pred.items()}
         gts = parse_groundtruths(batch, config_dict)
@@ -340,7 +362,7 @@ def _make_datasets(flags, cfg, recipe):
     domains' (`backtoreality_tpu/train/groupfree.py:423-447`)."""
     kw = dict(num_points=flags.num_point, use_color=flags.use_color,
               use_height=flags.use_height, seed=flags.rng_seed,
-              gf_labels=True)
+              gf_labels=True, **common.cache_kw(flags))
     jitter = 0.0 if recipe == "fsb" else flags.center_jitter
     source_ds = None
     if recipe in ("br", "br_center_refine"):
@@ -397,34 +419,44 @@ def _pairs(loader_S, loader_T):
 def main(recipe: str, argv=None):
     """Parse `argv` (default: the command line) and train `recipe`: fsb,
     wsb, br or br_center_refine. Returns the trained model and its
-    optimizer."""
+    optimizer; with ``--num_devices`` above 1, None (the ranks ran in
+    processes of their own; the state is in the checkpoint)."""
     if recipe not in RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}")
     common.make_deterministic()
-    da = recipe in ("br", "br_center_refine")
-    jitter_model = recipe == "br_center_refine"
     parser = argparse.ArgumentParser()
     add_flags(parser)
     if recipe != "fsb":
         parser.add_argument("--center_jitter", type=float, default=0.1)
-    if da:
+    if recipe in ("br", "br_center_refine"):
         parser.add_argument("--source_data_root", required=True,
                             help="virtual-scene data root (obj_aug)")
     flags = parser.parse_args(argv)
+    return common.launch(_train, flags, recipe)
 
-    device = common.resolve_device(flags.device)
+
+def _train(flags, device, recipe):
+    """The training loop of `recipe` on `device` (one rank of several
+    when there is a process group). Returns the model and its
+    optimizer."""
+    da = recipe in ("br", "br_center_refine")
+    jitter_model = recipe == "br_center_refine"
+    split = parallel.world() > 1 and not flags.multihost
+    shards = parallel.process_shard_info() if flags.multihost else (1, 0)
+    shard_kw = dict(num_shards=shards[0], shard_index=shards[1])
     cfg = get_config(flags.dataset)
     logger = common.setup_logger(flags.log_dir, name="gf")
     common.dump_config(flags.log_dir, vars(flags))
     source_ds, train_ds, val_ds = _make_datasets(flags, cfg, recipe)
     train_loader = DetectionDataLoader(train_ds, flags.batch_size,
-                                       seed=flags.rng_seed)
+                                       seed=flags.rng_seed, **shard_kw)
     val_loader = DetectionDataLoader(val_ds, flags.batch_size,
-                                     shuffle=False, drop_last=False)
+                                     shuffle=False, drop_last=False,
+                                     **shard_kw)
     loader_S = None
     if da:
         loader_S = DetectionDataLoader(source_ds, flags.batch_size,
-                                       seed=flags.rng_seed + 1)
+                                       seed=flags.rng_seed + 1, **shard_kw)
         logger.info("S scans: %d, T scans: %d, val: %d", len(source_ds),
                     len(train_ds), len(val_ds))
         steps_per_epoch = min(len(loader_S), len(train_loader))
@@ -449,6 +481,11 @@ def main(recipe: str, argv=None):
     ckpt_path = pathlib.Path(flags.log_dir) / "ckpt_epoch_last.tar"
     start_epoch = _restore(model, optimizer, flags, recipe, ckpt_path,
                            logger)
+    parallel.replicate(model)
+    parallel.check_same(steps_per_epoch, "train steps an epoch")
+    if parallel.rank():
+        # each rank draws dropout masks of its own rows
+        torch.manual_seed(flags.rng_seed + parallel.rank())
     history = ScalarHistory(flags.log_dir)
 
     if da:
@@ -461,56 +498,77 @@ def main(recipe: str, argv=None):
     # the DA recipes evaluate with the weak criterion on the target
     eval_step = make_eval_step(model, criterion, cfg, loss_kw, prefixes,
                                jitter=jitter_model)
-    for epoch in range(start_epoch, flags.max_epoch):
-        train_loader.set_epoch(epoch)
-        t0 = time.time()
-        if da:
-            loader_S.set_epoch(epoch)
+    recal_loader = (parallel.ShardedRows(train_loader) if split
+                    else train_loader)
+
+    def rows(batch):
+        return parallel.shard_rows(batch)[0] if split else batch
+
+    guard = common.PreemptionGuard(ckpt_path, logger)
+    trace = TraceWindow(flags.profile_dir)
+    timer = StepTimer()
+    host_step = 0
+    try:
+        for epoch in range(start_epoch, flags.max_epoch):
+            train_loader.set_epoch(epoch)
+            timer.reset()
+            if da:
+                loader_S.set_epoch(epoch)
+                batches = _pairs(loader_S, train_loader)
+            else:
+                batches = ((batch,) for batch in train_loader)
             aux_hist = []
-            for batch_S, batch_T in _pairs(loader_S, train_loader):
-                aux_hist.append(train_step(
-                    to_device(batch_S, device), to_device(batch_T, device),
-                    flags.bn_momentum, epoch))
+            for pair in batches:
+                host_step += 1
+                trace.before(host_step)
+                args = [to_device(rows(b), device) for b in pair]
+                aux_hist.append(train_step(*args, flags.bn_momentum,
+                                           *([epoch] if da else [])))
+                trace.after(host_step)
+                timer.tick(flags.batch_size)
+                if (flags.guard_every_steps
+                        and len(aux_hist) % flags.guard_every_steps == 0):
+                    # saved as the epoch before: a resume re-runs this one
+                    guard.update(model, optimizer, epoch - 1)
                 if len(aux_hist) >= steps_per_epoch:
                     break
-        else:
-            aux_hist = [train_step(to_device(batch, device),
-                                   flags.bn_momentum)
-                        for batch in train_loader]
-        means = common.fetch_aux_means(aux_hist)  # waits for the device
-        dt = time.time() - t0
-        nb = len(aux_hist)
-        lr = optimizer.param_groups[0]["lr"]  # the epoch's last step's
-        logger.info("epoch %03d lr %.2e loss %.4f (%d batches, %.1fs, "
-                    "%.2f scenes/s)", epoch, lr,
-                    means.get("loss", float("nan")), nb, dt,
-                    nb * flags.batch_size / max(dt, 1e-9))
-        history.append(epoch, means, lr=lr,
-                       scenes_per_sec=nb * flags.batch_size
-                       / max(dt, 1e-9))
-        if (epoch + 1) % flags.save_freq == 0 or \
-                epoch == flags.max_epoch - 1:
-            common.save_checkpoint(
-                pathlib.Path(flags.log_dir) / f"ckpt_epoch_{epoch}.tar",
-                model, optimizer, epoch)
-        common.save_checkpoint(ckpt_path, model, optimizer, epoch)
-        if (epoch + 1) % flags.val_freq == 0:
-            # the (target's) train batches, as the JAX loop's
-            with common.buffers_kept(model), recal_dropout(model) as seed:
-                common.recalibrate_bn(
-                    train_loader,
-                    common.make_recal_step(model, jitter=jitter_model,
-                                           before=seed),
-                    device, common.recal_batches(flags))
-                results, _ = evaluate(val_loader, eval_step, cfg, device,
-                                      logger, flags, prefixes)
-            first = results[(prefixes[0], flags.ap_iou_thresholds[0])]
-            history.append(epoch, {
-                "mAP": first["mAP"], "AR": first["AR"],
-                **{f"mAP@{t}": results[(prefixes[0], t)]["mAP"]
-                   for t in flags.ap_iou_thresholds}}, kind="eval")
-            if da:
-                with open(pathlib.Path(flags.log_dir) / "Eval_mAP.txt",
-                          "a") as f:
-                    f.write(f"{epoch}\t{first['mAP']:.4f}\n")
+            means = common.fetch_aux_means(aux_hist)  # waits for the device
+            lr = optimizer.param_groups[0]["lr"]  # the epoch's last step's
+            logger.info("epoch %03d lr %.2e loss %.4f (%d batches, %.1fs, "
+                        "%.2f scenes/s)", epoch, lr,
+                        means.get("loss", float("nan")), timer.steps,
+                        timer.elapsed, timer.scenes_per_sec)
+            history.append(epoch, means, lr=lr,
+                           scenes_per_sec=timer.scenes_per_sec)
+            guard.update(model, optimizer, epoch)
+            if (epoch + 1) % flags.save_freq == 0 or \
+                    epoch == flags.max_epoch - 1:
+                common.save_checkpoint(
+                    pathlib.Path(flags.log_dir) / f"ckpt_epoch_{epoch}.tar",
+                    model, optimizer, epoch)
+            common.save_checkpoint(ckpt_path, model, optimizer, epoch)
+            if (epoch + 1) % flags.val_freq == 0:
+                # the (target's) train batches, as the JAX loop's
+                with common.buffers_kept(model), \
+                        recal_dropout(model) as seed:
+                    common.recalibrate_bn(
+                        recal_loader,
+                        common.make_recal_step(model, jitter=jitter_model,
+                                               before=seed),
+                        device, common.recal_batches(flags))
+                    results, _ = evaluate(val_loader, eval_step, cfg,
+                                          device, logger, flags, prefixes,
+                                          split)
+                first = results[(prefixes[0], flags.ap_iou_thresholds[0])]
+                history.append(epoch, {
+                    "mAP": first["mAP"], "AR": first["AR"],
+                    **{f"mAP@{t}": results[(prefixes[0], t)]["mAP"]
+                       for t in flags.ap_iou_thresholds}}, kind="eval")
+                if da and parallel.rank() == 0:
+                    with open(pathlib.Path(flags.log_dir) / "Eval_mAP.txt",
+                              "a") as f:
+                        f.write(f"{epoch}\t{first['mAP']:.4f}\n")
+    finally:
+        trace.close()
+        guard.close()
     return model, optimizer

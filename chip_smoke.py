@@ -37,8 +37,11 @@ gated on two steps from one state giving bitwise-equal parameters.
    (64 a scene, most padded at +1000 and hitting no point) over the sa2
    points and the 288-wide fp2 features: the ball query in every tile, the
    fused grouping at C = 3 + 288 divided by r = 0.8, its backward timed,
-   with the length of its longest list. Every wrapper raises on
-   bfloat16 and float16 inputs without launching.
+   with the length of its longest list. The data-parallel paths' shapes
+   too: every call of VoteNet's training forward and GroupFree3D's SA1 on
+   the first 4 of the 8 rows (a rank's share), each record tagged with
+   those paths; every kernel must have such a record. Every wrapper
+   raises on bfloat16 and float16 inputs without launching.
    Kernel, plain and library times are medians of CUDA events, with the
    host's launches queued ahead of the device so that they time device
    work; the plain and library backwards of the grouping run under the
@@ -131,11 +134,43 @@ gated on two steps from one state giving bitwise-equal parameters.
    fails unless the late ratio (the mean train loss over the last 11
    matched epochs over the reference's) lies within 0.85-1.15, printed
    beside the JAX leg's, with the mAP rows (not gated).
-9. Print each phase's seconds, the card's name and power limit, one JSON
+9. Data parallelism, the preemption guard and the profiler window.
+   ``[data parallel]``: ``votenet_fsb.main --multihost`` as a group of one
+   (``BTR_NUM_PROCESSES=1``, NCCL) bitwise the plain run (losses and final
+   state, 2 steps); then two ranks spawned on the one card (gloo, the
+   stated rule for ranks that share a card) take the VoteNet FSB, BR and
+   GF FSB steps of the bench configuration (4 + 4 rows of a fixed global
+   batch, N=40000 and 8192 candidates, GF at its CLI defaults with dropout
+   0; Adam at 1e-3, BN momentum 0.5) from a common seeded state, the
+   VoteNet votes' offsets zeroed so that vote FPS and grouping read exact
+   coordinates: the loss, every gradient summed over the ranks and the BN
+   buffers against world 1's step on the 8 rows. As the step runs, the
+   loss, all gradients and all buffers, each as one vector, within 1e-4
+   or 4 times world 1 against itself on the rows reversed (f32: only the
+   order of the sums differs, and it flips ReLU masks, max-pool winners
+   and ball-query slots within rounding of a tie; their counts printed);
+   with world 1's discrete choices replayed (``Pinned``), every tensor
+   within 1e-4 of its largest magnitude or 4 times its own error in the
+   reversal; both ranks bitwise equal, two runs bitwise equal, each
+   rank's launches a forward and a step checked; each step's wall and
+   peak memory a rank.
+   Then the JAX package's two-process contract (tests/test_multiprocess.py)
+   for ``votenet_fsb`` (2 epochs, then ``--resume`` for a third),
+   ``votenet_br`` and ``gf_fsb`` (1 epoch), two ``--multihost`` processes
+   on the card, batch 4 each, on the 16-scan fixtures: equal epoch losses
+   on both ranks, rank 0's checkpoints only, ``log_train.txt.rank1``, an
+   evaluation in both logs. ``[preemption]``: ``votenet_fsb`` with
+   ``--guard_every_steps 1`` in a process of its own, sent SIGTERM in its
+   second epoch: exit 143, the checkpoint (epoch 0) bitwise the state
+   after as many steps replayed here, ``--resume`` finishes; one
+   ``guard.update`` timed for VoteNet's and GF's state. ``[profile]``:
+   ``votenet_fsb.main --profile_dir`` over 16 steps writes a trace of steps
+   10-15 naming the FPS, ball-query and grouping kernels.
+10. Print each phase's seconds, the card's name and power limit, one JSON
    line with every kernel's numbers (times summed over the VoteNet FSB
-   training path's shapes; launches by path, the GF and exact paths
-   included), and as the last line ``{"ok": true, "device": {"platform":
-   "gpu", ...}}``.
+   training path's shapes; launches by path, the GF, exact and
+   data-parallel paths included), and as the last line ``{"ok": true,
+   "device": {"platform": "gpu", ...}}``.
 
 It exits nonzero without a CUDA device, and imports nothing of JAX.
 ``--kernels_only`` stops after phase 2 and prints its records as one JSON
@@ -185,6 +220,9 @@ GF_TRAINING = ("gf_fsb", "gf_wsb", "gf_br", "gf_br_center_refine")
 GF_PATHS = ("gf_serving",) + GF_TRAINING
 GF_JITTER_PATH = ("gf_br_center_refine",)
 BF16_TRAINING = ("training_bf16", "gf_fsb_bf16")
+# the world-2 train steps (rank 0's launches, 4 rows a rank)
+DP_PATHS = ("dp_votenet_fsb", "dp_votenet_br", "dp_gf_fsb")
+DP_VOTENET = DP_PATHS[:2]
 N_GF = 50000
 # launches per forward (FPS, ball query, the fused grouping) and grouping
 # backwards per train step, by model graph. A DA step runs two forwards
@@ -1669,8 +1707,22 @@ def gf_kernel_phase(scans, cfg, fps, bq, grouping):
                                         needs=("features",))
     ctjt_bq["paths"] = ctjt_fwd["paths"] = ctjt_bwd["paths"] = GF_JITTER_PATH
     del ep
-    return (fps_rec, [bq_rec, ctjt_bq], group_recs,
-            local_recs + [ctjt_fwd], [ctjt_bwd])
+
+    # a rank's rows (gf_fsb's data-parallel path): SA1 on the first B / 2
+    h = B // 2
+    print(f"[kernels: GroupFree3D SA1, a rank's rows] B={h}")
+    rank_recs = [check_fps("gf_sa1_rank", xyz[:h], 2048, fps, reps=3),
+                 check_bq("gf_sa1_rank", xyz[:h], ctr[:h], 0.2, 64, bq,
+                          reps=3)]
+    # SA1's input needs no gradient: the backward is checked, not kept
+    fwd, _ = check_group("gf_sa1_rank", xyz[:h].contiguous(), ctr[:h], 0.2,
+                         64, bq, grouping, reps=5)
+    local, _ = check_localize("gf_sa1_rank", xyz[:h], None, ctr[:h], 0.2, 64,
+                              bq, grouping, reps=5)
+    for rec in rank_recs + [fwd, local]:
+        rec["paths"] = ("dp_gf_fsb",)
+    return ([fps_rec, rank_recs[0]], [bq_rec, ctjt_bq, rank_recs[1]],
+            group_recs + [fwd], local_recs + [ctjt_fwd, local], [ctjt_bwd])
 
 
 def gf_serving_phase(scans, tmp, cfg, counters, header):
@@ -2066,20 +2118,20 @@ REF_INITS = {"wsb": "votenet", "br": "votenet_da", "gf": "groupfree"}
 GF_INIT_FLAGS = ["--num_decoder_layers", "2", "--dim_feedforward", "128",
                  "--use_height"]
 # the round-5 system-parity pairs (evidence/round5/queue/s1_wsb_ours.sh,
-# s3_br_ours.sh, s4_cr_ours.sh, s8_gf_ours.sh; their --guard_every_steps 0
-# dropped, the port has no guard): fixture kind, entry point, flags, the
+# s3_br_ours.sh, s4_cr_ours.sh, s8_gf_ours.sh): fixture kind, entry point,
+# flags, the
 # imported init it starts from (CenterRefine from scratch, as the JAX leg
 # did: its reference init is not in the repo), epochs run. WSB and GF run
 # the first 51 of their 125: neither schedule reads --max_epoch (WSB decays
 # its rate at 80/120 and BN every 20 epochs, GF steps at 280/340)
 PAIR_BR_FLAGS = ["--num_point", "1500", "--num_target", "16",
                  "--batch_size", "8", "--eval_freq", "10", "--seed", "0",
-                 "--query_mode", "exact"]
+                 "--query_mode", "exact", "--guard_every_steps", "0"]
 PAIRS = {
     "wsb": ("parity", "votenet_wsb", [
         "--num_point", "2500", "--num_target", "32", "--batch_size", "8",
-        "--eval_freq", "25", "--seed", "0", "--query_mode", "exact"],
-        "wsb", 51),
+        "--eval_freq", "25", "--seed", "0", "--query_mode", "exact",
+        "--guard_every_steps", "0"], "wsb", 51),
     "br": ("br", "votenet_br", PAIR_BR_FLAGS + ["--center_jitter", "0.1"],
            "br", 30),
     "cr": ("br", "votenet_br_center_refine",
@@ -2087,7 +2139,7 @@ PAIRS = {
     "gf": ("parity", "gf_fsb", [
         "--num_point", "2500", "--num_target", "32", "--batch_size", "8",
         *GF_INIT_FLAGS, "--val_freq", "25", "--rng_seed", "0",
-        "--query_mode", "exact"], "gf", 51),
+        "--query_mode", "exact", "--guard_every_steps", "0"], "gf", 51),
 }
 PAIR_LATE = 11  # the late ratio's epochs: the last 11 matched
 PAIR_BAND = (0.85, 1.15)
@@ -2426,6 +2478,827 @@ def parity_pairs_phase(tmp, inits, counters, header):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism, the preemption guard and the profiler window
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+# f32 on the card, only the order of the sums differs (the BN moments'
+# and the gradients' over the ranks). That order moves some ReLU masks
+# and max-pool winners that lie within rounding of a tie, and each flip
+# moves a whole term of a gradient that at init is a sum of many terms of
+# both signs: world 1 against itself on the rows in reverse parts the
+# gradients by about 1% (PERF.md, section 6). So the step is compared
+# twice. As it runs: the loss, all gradients as one vector and all BN
+# buffers as one, each relative to its norm, within DP_TOL or DP_NOISE
+# times that reversal's error. With the choices pinned (Pinned: world
+# 1's replayed in world 2 and in the reversal): every tensor within DP_TOL
+# of its largest magnitude, or DP_NOISE times the reversal's error of that
+# tensor where rounding alone parts it further (dp_pinned_error)
+DP_TOL = 1e-4
+DP_NOISE = 4
+DP_TIMEOUT = 600  # seconds for a pair of ranks or of trainer processes
+DP_CASES = (("votenet_fsb", "plain", 1), ("votenet_br", "da", 2),
+            ("gf_fsb", "gf", 1))
+
+
+class Pinned:
+    """The discrete choices of a train step, recorded in one run and
+    replayed in another: every ReLU's mask (``torch.relu``), every
+    max-pool's winner over a group's samples (``torch.amax`` over axis 2
+    of a (B, M, S, C) tensor), every SA layer's ball query (its slots and
+    hit flags), GroupFree3D's top-k queries and every ``nn_distance``
+    nearest neighbour of the criteria. A choice whose inputs lie within
+    rounding of a tie (a pre-activation at 0, two samples' features, two
+    distances, a point at the radius) flips when the order of a sum
+    changes, and each flip moves a whole term of the gradient; the ball
+    query's tile, and with it how a distance at the radius rounds, also
+    follows the rows of a launch (``ops/ball_query.py``: 4 rows may take
+    another tile than 8). Replayed, two runs part by rounding alone. Recording computes the replay's
+    function (a mask product, a gather at the winner), so the two runs are
+    the same function. Rows are the first axis of every choice: a replay
+    takes the recorded rows in reverse (`reverse`) and, on a tensor with
+    fewer rows than recorded, this rank's share of them (a rank's forward;
+    a criterion sees the gathered global batch)."""
+
+    def __init__(self, log=None):
+        self.log = [] if log is None else log
+        self.kinds = []
+        self.recording = log is None
+        self.reverse = False
+        self.k = 0
+
+    def _choice(self, make, rows, kind):
+        import torch
+
+        if self.recording:
+            choice = make()
+            self.log.append(choice)
+            self.kinds.append(kind)
+            return choice
+        choice = self.log[self.k]
+        self.k += 1
+        if not torch.is_tensor(choice):  # a packed mask
+            import numpy as np
+
+            shape, bits = choice
+            choice = torch.from_numpy(np.unpackbits(
+                bits, count=math.prod(shape)).reshape(shape).astype(bool))
+        if self.reverse:
+            choice = choice.flip(0)
+        if rows < choice.shape[0]:
+            from backtoreality_tpu_torch import parallel
+
+            r = parallel.rank()
+            choice = choice[r * rows:(r + 1) * rows]
+        return choice
+
+    def _relu(self, x):
+        mask = self._choice(lambda: x.detach() > 0, x.shape[0],
+                            "ReLU masks")
+        require(mask.shape == x.shape, f"replayed mask {tuple(mask.shape)}"
+                f" for a ReLU on {tuple(x.shape)}")
+        return x * mask.to(x.device)
+
+    def _amax(self, x, dim, keepdim=False):
+        if x.dim() != 4 or dim != 2:
+            return self.real["amax"](x, dim, keepdim)
+        win = self._choice(lambda: x.detach().argmax(2, keepdim=True),
+                           x.shape[0], "max-pool winners").to(x.device)
+        out = x.gather(2, win)
+        return out if keepdim else out.squeeze(2)
+
+    def _ball_query(self, xyz, centres, radius, nsample, return_hit=False):
+        made = []
+
+        def query():
+            made.extend(self.real["ball_query"](xyz, centres, radius,
+                                                nsample, return_hit=True))
+            return made[0]
+
+        idx = self._choice(query, xyz.shape[0], "ball-query slots")
+        hit = self._choice(lambda: made[1], xyz.shape[0], "ball-query hits")
+        idx, hit = idx.to(xyz.device), hit.to(xyz.device)
+        return (idx, hit) if return_hit else idx
+
+    def _top_k(self, scores, k):
+        return self._choice(lambda: self.real["top_k"](scores, k),
+                            scores.shape[0], "top-k queries").to(
+                                scores.device)
+
+    def _nn_distance(self, pc1, pc2, l1smooth=False, l1=False, delta=1.0):
+        from backtoreality_tpu_torch.ops import huber_loss
+
+        # the pairwise distances as ops/chamfer.py forms them
+        diff = pc1[:, :, None, :] - pc2[:, None, :, :]
+        if l1smooth:
+            d = huber_loss(diff, delta).sum(-1)
+        elif l1:
+            d = diff.abs().sum(-1)
+        else:
+            d = (diff * diff).sum(-1)
+        i1 = self._choice(lambda: d.detach().argmin(2, keepdim=True),
+                          d.shape[0], "nearest neighbours").to(d.device)
+        i2 = self._choice(lambda: d.detach().argmin(1, keepdim=True),
+                          d.shape[0], "nearest neighbours").to(d.device)
+        return (d.gather(2, i1)[..., 0], i1[..., 0].int(),
+                d.gather(1, i2)[:, 0], i2[:, 0].int())
+
+    def _sites(self):
+        import torch
+
+        from backtoreality_tpu_torch import ops
+        from backtoreality_tpu_torch.losses import groupfree as gf_losses
+        from backtoreality_tpu_torch.losses import votenet as vote_losses
+        from backtoreality_tpu_torch.models.groupfree import detector
+
+        return ((torch, "relu", self._relu), (torch, "amax", self._amax),
+                (ops, "ball_query_stratified", self._ball_query),
+                (detector, "top_k_indices", self._top_k),
+                (vote_losses, "nn_distance", self._nn_distance),
+                (gf_losses, "nn_distance", self._nn_distance))
+
+    def __enter__(self):
+        self.k = 0
+        self.real, self.saved = {}, []
+        for module, attr, fn in self._sites():
+            self.saved.append((module, attr, getattr(module, attr)))
+            setattr(module, attr, fn)
+        self.real = {"amax": self.saved[1][2],
+                     "ball_query": self.saved[2][2],
+                     "top_k": self.saved[3][2]}
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.saved:
+            setattr(module, attr, fn)
+        if not exc[0]:
+            require(self.recording or self.k == len(self.log),
+                    f"{self.k} of {len(self.log)} recorded choices replayed")
+        self.recording = False
+
+    def differ(self, recording):
+        """{kind: (choices that differ, choices)}: `recording`'s own
+        choices against this log's as a replay would take them for it."""
+        out = {}
+        self.k = 0
+        for kind, own in zip(recording.kinds, recording.log):
+            mine = self._choice(None, own.shape[0], kind).to(own.device)
+            n = out.setdefault(kind, [0, 0])
+            n[0] += (mine != own).sum().item()
+            n[1] += own.numel()
+        self.k = 0
+        return {kind: tuple(n) for kind, n in out.items()}
+
+    def packed(self):
+        """The log on the host, each mask packed to bits."""
+        import numpy as np
+        import torch
+
+        return [(tuple(c.shape), np.packbits(c.cpu().numpy()))
+                if c.dtype == torch.bool else c.cpu() for c in self.log]
+
+
+def dp_batches(spec, cfg):
+    """The global batches of the data-parallel cases (host numpy, the
+    first B scans of each fixture, as the bench-config steps take them):
+    VoteNet FSB, BR's source and target, GroupFree3D FSB."""
+    from backtoreality_tpu_torch.data.dataset import DetectionDataset
+    from backtoreality_tpu_torch.data.loader import DetectionDataLoader
+
+    def first(root, split, **kw):
+        ds = DetectionDataset(cfg, root, split=split, augment=True, **kw)
+        return next(iter(DetectionDataLoader(ds, B, shuffle=False,
+                                             prefetch=0)))
+
+    votenet = dict(num_points=N, use_height=True)
+    return {"votenet_fsb": [first(spec["scans"], "all", **votenet)],
+            "votenet_br": [first(spec["virtual"], "train_aug", **votenet),
+                           first(spec["scans"], "all", center_jitter=0.1,
+                                 **votenet)],
+            "gf_fsb": [first(spec["gf_scans"], "all", num_points=N_GF,
+                             use_height=False, gf_labels=True)]}
+
+
+def dp_steps(spec, counters, pinned=None):
+    """Each data-parallel case's train step from a common seeded state on
+    this rank's rows of its global batch (all of it without a process
+    group), twice from that state: the loss, the gradients (summed over
+    the ranks; GF's clipped), the BN buffers, whether the two runs agree
+    bitwise, the launches of the first run, then the step's time (median
+    of 3 CUDA-event runs) and peak memory. Then the step with its discrete
+    choices pinned (:class:`Pinned`): without a process group recorded,
+    then replayed on the rows in reverse, with the packed log under
+    "choices"; in a group replayed from `pinned` (name -> packed log).
+    Under "flips", the choices that the rows in reverse (in a group: this
+    rank's rows) make otherwise than the recording."""
+    import copy
+
+    import torch
+
+    from backtoreality_tpu_torch import parallel
+    from backtoreality_tpu_torch.data import get_config
+    from backtoreality_tpu_torch.losses import votenet as vote_losses
+    from backtoreality_tpu_torch.losses import groupfree as gf_losses
+    from backtoreality_tpu_torch.train import common, groupfree, votenet
+
+    cfg = get_config("scannet_md40")
+    batches = dp_batches(spec, cfg)
+    flags = votenet.add_common_flags(argparse.ArgumentParser()).parse_args(
+        ["--fps_candidates", "8192"])
+    out = {}
+    for name, kind, _ in DP_CASES:
+        torch.manual_seed(0)
+        if name == "gf_fsb":
+            gflags = gf_flags()
+            gflags.transformer_dropout = 0.0
+            model = groupfree.build_model(gflags, cfg).cuda()
+            opt = common.make_gf_optimizer(
+                model, common.make_gf_schedule(gflags.learning_rate, gflags,
+                                               2),
+                common.make_gf_schedule(gflags.decoder_learning_rate, gflags,
+                                        2),
+                gflags.weight_decay, gflags.clip_norm)
+            step = groupfree.make_train_step(
+                model, opt, gf_losses.get_loss, cfg,
+                groupfree.loss_kwargs(gflags))
+            args = (gflags.bn_momentum,)
+        else:
+            model = votenet.build_model(flags, cfg, kind).cuda()
+            with torch.no_grad():
+                # the votes' offsets zeroed: vote FPS and vote grouping then
+                # read exact coordinates, so their choices cannot flip on
+                # the f32 rounding by which two reduction orders move a
+                # vote (about 1e-5 m; a flipped proposal changes the step)
+                model.vgen.out.weight[:3] = 0
+                model.vgen.out.bias[:3] = 0
+            opt = common.make_optimizer(model.parameters(), "adam", lr0=1e-3)
+            if kind == "da":
+                step = votenet.make_da_train_step(model, opt, cfg)
+                args = (0.5, 0)
+            else:
+                step = votenet.make_train_step(model, opt,
+                                               vote_losses.get_loss, cfg)
+                args = (0.5,)
+        rows = [common.to_device(parallel.shard_rows(b)[0], "cuda")
+                for b in batches[name]]
+        state = copy.deepcopy(model.state_dict())
+        opt_state = copy.deepcopy(opt.state_dict())
+
+        def run(batch_rows=rows):
+            model.load_state_dict(state)
+            opt.load_state_dict(copy.deepcopy(opt_state))
+            return step(*batch_rows, *args)
+
+        def take(batch_rows):
+            aux = run(batch_rows)
+            return dict(
+                loss=aux["loss"].detach().cpu(),
+                grads={n: p.grad.detach().cpu()
+                       for n, p in model.named_parameters()
+                       if p.grad is not None},
+                buffers={n: b.detach().cpu()
+                         for n, b in model.named_buffers()})
+
+        reset(counters)
+        first = take(rows)
+        launches = read_counts(counters)
+        again = take(rows)
+        same = (torch.equal(first["loss"], again["loss"]) and all(
+            torch.equal(first[part][k], again[part][k])
+            for part in ("grads", "buffers") for k in first[part]))
+        if parallel.world() == 1:
+            # the rows in reverse order: the same step but for the order
+            # of the sums, which sets how far f32 lets two orders part
+            reverse = [common.to_device({k: v[::-1].copy()
+                                         for k, v in b.items()}, "cuda")
+                       for b in batches[name]]
+            first["reversed"] = take(reverse)
+            pin, own = Pinned(), Pinned()
+            with pin:
+                first["pinned"] = take(rows)
+            with own:  # the reversed rows' own choices
+                take(reverse)
+            pin.reverse = True
+            first["flips"] = pin.differ(own)
+            del own
+            with pin:
+                first["pinned_reversed"] = take(reverse)
+            first["choices"] = pin.packed()
+            del pin, reverse
+        else:
+            pin, own = Pinned(pinned[name]), Pinned()
+            with own:  # this rank's own choices
+                take(rows)
+            first["flips"] = pin.differ(own)
+            del own
+            with pin:
+                first["pinned"] = take(rows)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(run, reps=3, warmup=0)
+        out[name] = dict(first, repeat_equal=same, launches=launches,
+                         ms=ms, peak_gb=torch.cuda.max_memory_allocated()
+                         / 2**30, rows=len(rows[0]["point_clouds"]))
+        del model, opt, step, rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(rank, world, address, spec, out_dir):
+    """One rank of the world-2 check: both ranks on the one card, over
+    gloo (the stated rule: local ranks that share a card)."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from backtoreality_tpu_torch import parallel
+    from backtoreality_tpu_torch.ops import fps, grouping
+    from backtoreality_tpu_torch.train.common import make_deterministic
+
+    # the module: the package exports its exact query under the same name
+    ball_query = importlib.import_module(
+        "backtoreality_tpu_torch.ops.ball_query")
+
+    make_deterministic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    name = parallel.init(rank, world, address, device, world)
+    try:
+        require(name == "gloo", f"two ranks on one card over {name}")
+        counters = (fps.KERNEL, ball_query.KERNEL, grouping.KERNEL,
+                    grouping.LOCALIZE)
+        out_dir = pathlib.Path(out_dir)
+        choices = torch.load(out_dir / "dp_choices.pt", weights_only=False)
+        torch.save(dp_steps(spec, counters, choices),
+                   out_dir / f"dp_rank{rank}.pt")
+    finally:
+        parallel.shutdown()
+
+
+def dp_error(one, two):
+    """Errors of `two` against `one`: the loss's, all gradients' as one
+    vector and all BN buffers' as one, each relative to its norm; and the
+    worst single tensor (relative to its largest magnitude) with its
+    name."""
+    import torch
+
+    require(set(two["grads"]) == set(one["grads"]),
+            "the gradients' names differ")
+
+    def rel(part):
+        keys = sorted(one[part])
+        a = torch.cat([two[part][k].double().flatten() for k in keys])
+        b = torch.cat([one[part][k].double().flatten() for k in keys])
+        return ((a - b).norm() / b.norm()).item()
+
+    worst = max(((two[part][k] - v).abs().max().item()
+                 / max(v.abs().max().item(), 1e-30), f"{part} {k}")
+                for part in ("grads", "buffers")
+                for k, v in one[part].items())
+    return dict(loss=(abs(two["loss"] - one["loss"])
+                      / abs(one["loss"])).item(),
+                grads=rel("grads"), buffers=rel("buffers"),
+                worst=worst)
+
+
+def dp_pinned_error(one, two, noise):
+    """Per tensor (the loss, each gradient, each BN buffer) the error of
+    `two` against `one` relative to the tensor's largest magnitude, and
+    its bound: DP_TOL, or DP_NOISE times the same error of `noise` (world
+    1 on the rows in reverse) where rounding alone parts that tensor by
+    more (a gradient that is zero but for rounding, such as an attention
+    key's bias). Returns {name: (error, bound)}."""
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    out = {"loss": (rel(two["loss"], one["loss"]),
+                    max(DP_TOL, DP_NOISE * rel(noise["loss"], one["loss"])))}
+    for part in ("grads", "buffers"):
+        for k, v in one[part].items():
+            out[f"{part} {k}"] = (rel(two[part][k], v), max(
+                DP_TOL, DP_NOISE * rel(noise[part][k], v)))
+    return out
+
+
+def _launch_pair(module, args, cwd):
+    """Two processes of `module` with `args`, ranks 0 and 1 of a group of
+    two on this host (the BTR_* variables): both on the one card, which
+    BTR_LOCAL_PROCESSES states, so the group runs over gloo."""
+    import os
+
+    from backtoreality_tpu_torch import parallel
+
+    port = parallel.free_port()
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, BTR_COORDINATOR=f"127.0.0.1:{port}",
+                   BTR_NUM_PROCESSES="2", BTR_PROCESS_ID=str(r),
+                   BTR_LOCAL_PROCESSES="2", PYTHONPATH=str(ROOT))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", f"backtoreality_tpu_torch.train.{module}",
+             *args], env=env, cwd=cwd, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _wait(procs, timeout=DP_TIMEOUT):
+    """Every process's (exit code, output) within `timeout` seconds; all
+    are killed at it."""
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(deadline - time.monotonic(),
+                                               0.0))
+            outs.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _epoch_losses(text):
+    import re
+
+    return {int(m.group(1)): float(m.group(2)) for m in
+            re.finditer(r"epoch (\d+) .*?loss ([\d.]+)", text)}
+
+
+def dp_contract(module, args, log, cwd, epochs):
+    """The JAX package's two-process contract (tests/test_multiprocess.py)
+    for `module` at --multihost world 2 on the card: both ranks exit 0 and
+    log the same loss every epoch, one set of checkpoints (rank 0's), the
+    rank-1 log, and an evaluation in both logs. Returns its seconds."""
+    t0 = time.perf_counter()
+    for rc, out in _wait(_launch_pair(module, args + ["--multihost"], cwd)):
+        require(rc == 0, f"{module} --multihost: a rank exited {rc}:\n"
+                f"{out[-3000:]}")
+    secs = time.perf_counter() - t0
+    log0 = (log / "log_train.txt").read_text()
+    rank1 = log / "log_train.txt.rank1"
+    require(rank1.exists(), f"{module}: no log_train.txt.rank1")
+    log1 = rank1.read_text()
+    l0, l1 = _epoch_losses(log0), _epoch_losses(log1)
+    require(sorted(l0) == list(epochs) and l0 == l1,
+            f"{module}: the ranks' epoch losses {l0} and {l1}")
+    require("eval" in log0 and "eval" in log1 and "mAP" in log1,
+            f"{module}: an evaluation is missing from a rank's log")
+    leftovers = sorted(p.name for p in log.glob("*.tmp"))
+    require(not leftovers, f"{module}: half-written files {leftovers}")
+    print(f"[data parallel] {module} --multihost, 2 processes on the card"
+          f" (gloo), batch {args[args.index('--batch_size') + 1]} a"
+          f" process: epochs {sorted(l0)} in {secs:.1f} s, losses {l0} on"
+          f" both ranks, checkpoints"
+          f" {sorted(p.name for p in log.glob('*.tar'))}, rank-1 log and"
+          f" per-rank evaluation present")
+    return secs
+
+
+def dp_compare(one, two, header):
+    """The world-2 steps (`two`, one dict a rank) against world 1's
+    (`one`): both ranks bitwise equal, each step bitwise repeatable, the
+    step as it runs and the step with its choices pinned within their
+    bounds (DP_TOL, DP_NOISE), the launches a rank; prints the errors and
+    the step times. Returns the launches (rank 0) by path."""
+    import torch
+
+    paths = {}
+    for name, kind, forwards in DP_CASES:
+        a, b = two[0][name], two[1][name]
+        same = torch.equal(a["loss"], b["loss"]) and all(
+            torch.equal(a[part][k], b[part][k])
+            for part in ("grads", "buffers") for k in a[part])
+        require(same, f"{name}: the ranks hold different losses, gradients"
+                " or buffers")
+        require(one[name]["repeat_equal"] and a["repeat_equal"]
+                and b["repeat_equal"],
+                f"{name}: a step is not bitwise repeatable")
+        err = dp_error(one[name], a)
+        noise = dp_error(one[name], one[name]["reversed"])
+        for part in ("loss", "grads", "buffers"):
+            bound = max(DP_TOL, DP_NOISE * noise[part])
+            require(err[part] <= bound, f"{name}: world 2 against world 1:"
+                    f" {part} off by {err[part]:.3g}, beyond {bound:.3g}")
+        # the choices pinned: every tensor within DP_TOL of its largest
+        # magnitude, or DP_NOISE times what rounding alone gives it
+        pinned = dp_pinned_error(one[name]["pinned"], a["pinned"],
+                                 one[name]["pinned_reversed"])
+        over = {k: v for k, v in pinned.items() if v[0] > v[1]}
+        require(not over, f"{name}: world 2 against world 1, choices"
+                f" pinned: {len(over)} tensors beyond their bound, e.g."
+                f" {sorted(over.items(), key=lambda kv: -kv[1][0])[:5]}")
+        require(torch.equal(a["pinned"]["loss"], b["pinned"]["loss"]),
+                f"{name}: the ranks' pinned losses differ")
+        worst = max(pinned.items(), key=lambda kv: kv[1][0] / kv[1][1])
+        loose = {k: v for k, v in pinned.items() if v[1] > DP_TOL}
+        for r, rank in enumerate(two):
+            check_counts(f"dp {name} rank {r}", rank[name]["launches"],
+                         kind, forwards, 1)
+        paths[f"dp_{name}"] = a["launches"]
+        print(f"[data parallel] {name}: world 2 ({a['rows']} + {b['rows']}"
+              f" rows, gloo on one card) against world 1"
+              f" ({one[name]['rows']} rows), relative errors: loss"
+              f" {err['loss']:.3g}, gradients {err['grads']:.3g}, BN buffers"
+              f" {err['buffers']:.3g}, worst tensor {err['worst'][0]:.3g}"
+              f" ({err['worst'][1]}); world 1 on the rows reversed: loss"
+              f" {noise['loss']:.3g}, gradients {noise['grads']:.3g},"
+              f" buffers {noise['buffers']:.3g}, worst tensor"
+              f" {noise['worst'][0]:.3g} ({noise['worst'][1]}); both ranks"
+              f" bitwise equal; two runs bitwise equal on each; launches a"
+              f" rank {a['launches']}")
+        pin_err = dp_error(one[name]["pinned"], a["pinned"])
+        pin_noise = dp_error(one[name]["pinned"],
+                             one[name]["pinned_reversed"])
+        for label, run in (("world 1 on the rows reversed", one[name]),
+                           ("world 2 on rank 0's rows", a)):
+            print(f"[data parallel] {name}: {label} makes other discrete"
+                  " choices than world 1: " + ", ".join(
+                      f"{n} of {total} {kind}" for kind, (n, total)
+                      in run["flips"].items()))
+        print(f"[data parallel] {name}, choices pinned (world 1's replayed):"
+              f" gradients {pin_err['grads']:.3g} against world 1 (world 1"
+              f" reversed {pin_noise['grads']:.3g}); {len(pinned)} tensors"
+              f" within their bounds, {len(pinned) - len(loose)} of them"
+              f" within {DP_TOL:g} of their largest magnitude; closest to"
+              f" its bound {worst[0]} {worst[1][0]:.3g} of {worst[1][1]:.3g};"
+              f" bounds by rounding {len(loose)}, median"
+              f" {statistics.median([v[1] for v in loose.values()] or [0]):.3g},"
+              f" the largest"
+              f" {max([v[1] for v in loose.values()], default=0):.3g}"
+              f" ({max(loose, key=lambda k: loose[k][1], default='-')})")
+        print(f"[data parallel] {name} step: world 1 {one[name]['ms']:.3f}"
+              f" ms, peak {one[name]['peak_gb']:.2f} GiB; world 2 rank 0"
+              f" {a['ms']:.3f} ms, peak {a['peak_gb']:.2f} GiB, rank 1"
+              f" {b['ms']:.3f} ms, peak {b['peak_gb']:.2f} GiB (the two"
+              f" ranks share the card)  | {header}")
+    return paths
+
+def dp_phase(scans, virtual, gf_scans, tmp, counters, header):
+    """``[data parallel]``: world 1 over NCCL bitwise the plain run; the
+    world-2 steps against world 1, repeated bitwise, with their launches;
+    the multi-process contract of votenet_fsb (and its resume), votenet_br
+    and gf_fsb. Returns the world-2 steps' launches (rank 0) by path."""
+    import os
+
+    import torch
+
+    from backtoreality_tpu_torch import parallel
+    from backtoreality_tpu_torch.train import common, votenet_fsb
+
+    tmp = pathlib.Path(tmp)
+    device = torch.device("cuda", 0)
+    require(parallel.backend(device, 1) == "nccl"
+            and parallel.backend(device, 2) == "gloo",
+            "the backend rule: NCCL for a card a rank, gloo when shared")
+
+    # world 1: a group of one over NCCL is the plain run, bit for bit
+    args = ["--data_root", str(scans), "--train_split", "all",
+            "--val_split", "all", "--device", "cuda", "--num_point",
+            str(N), "--batch_size", str(B), "--fps_candidates", "8192",
+            "--max_epoch", "1", "--eval_freq", "10"]
+    runs = {}
+    for label, extra in (("plain", []), ("multihost", ["--multihost"])):
+        log = tmp / f"dp_world1_{label}"
+        if extra:
+            os.environ["BTR_NUM_PROCESSES"] = "1"
+        try:
+            model, _ = votenet_fsb.main(args + ["--log_dir", str(log),
+                                                *extra])
+        finally:
+            os.environ.pop("BTR_NUM_PROCESSES", None)
+        losses = [json.loads(line)["loss"] for line in
+                  (log / "metrics.jsonl").read_text().splitlines()]
+        runs[label] = (losses, {k: v.detach().cpu().clone()
+                                for k, v in model.state_dict().items()})
+        del model
+    require(not torch.distributed.is_initialized(),
+            "the world-1 group was not left")
+    (l_plain, s_plain), (l_mh, s_mh) = runs["plain"], runs["multihost"]
+    differ = [k for k in s_plain if not torch.equal(s_plain[k], s_mh[k])]
+    print(f"[data parallel] world 1: votenet_fsb.main --multihost"
+          f" (BTR_NUM_PROCESSES=1, NCCL) against the plain run, 2 steps:"
+          f" losses {l_mh} and {l_plain}, {len(differ)} of {len(s_plain)}"
+          f" state entries differ bitwise")
+    require(l_mh == l_plain and not differ,
+            f"world 1 over NCCL is not the plain run: {differ[:5]}")
+    torch.cuda.empty_cache()
+
+    # world 2 on the one card against world 1, on the same global batches
+    spec = dict(scans=str(scans), virtual=str(virtual),
+                gf_scans=str(gf_scans))
+    one = dp_steps(spec, counters)
+    torch.save({name: one[name].pop("choices") for name in one},
+               tmp / "dp_choices.pt")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        common.spawn(dp_rank, DP_WORLD, spec, str(tmp), timeout=DP_TIMEOUT)
+    except SystemExit as failed:
+        require(False, f"the world-2 ranks failed ({failed.code}; 124:"
+                f" killed at {DP_TIMEOUT} s)")
+    ranks_s = time.perf_counter() - t0
+    two = [torch.load(tmp / f"dp_rank{r}.pt", weights_only=False)
+           for r in range(DP_WORLD)]
+    paths = dp_compare(one, two, header)
+    print(f"[data parallel] world-2 ranks: {ranks_s:.1f} s from spawn to"
+          " exit")
+
+    # the JAX package's multi-process contract, on the 16-scan fixtures
+    per_process = str(B // DP_WORLD)
+    vote = ["--data_root", str(scans), "--train_split", "all",
+            "--val_split", "all", "--num_point", str(N), "--batch_size",
+            per_process, "--fps_candidates", "8192"]
+    log = tmp / "dp_fsb"
+    dp_contract("votenet_fsb", vote + ["--log_dir", str(log), "--max_epoch",
+                                       "2", "--eval_freq", "2"],
+                log, tmp, range(2))
+    require(sorted(p.name for p in log.glob("*.tar")) == ["checkpoint.tar"],
+            "votenet_fsb: one checkpoint")
+    dp_contract("votenet_fsb", vote + [
+        "--log_dir", str(log), "--max_epoch", "3", "--eval_freq", "1",
+        "--resume", "--checkpoint_path", str(log / "checkpoint.tar")],
+        log, tmp, range(3))
+    log = tmp / "dp_br"
+    dp_contract("votenet_br", vote + [
+        "--log_dir", str(log), "--source_data_root", str(virtual),
+        "--max_epoch", "1", "--eval_freq", "1"], log, tmp, range(1))
+    require(sorted(p.name for p in log.glob("*.tar")) == ["train_BR.tar"],
+            "votenet_br: one checkpoint")
+    log = tmp / "dp_gf"
+    dp_contract("gf_fsb", [
+        "--data_root", str(gf_scans), "--train_split", "all", "--val_split",
+        "all", "--batch_size", per_process, "--log_dir", str(log),
+        "--max_epoch", "1", "--val_freq", "1"], log, tmp, range(1))
+    require(sorted(p.name for p in log.glob("*.tar"))
+            == ["ckpt_epoch_0.tar", "ckpt_epoch_last.tar"],
+            "gf_fsb: one set of checkpoints")
+    return paths
+
+
+def preemption_phase(scans, gf_scans, tmp, header):
+    """``[preemption]``: ``votenet_fsb`` in a process of its own with
+    ``--guard_every_steps 1`` (B=8: 2 steps an epoch, 30 epochs), sent
+    SIGTERM once its first checkpoint is written: it must exit with 143
+    having written the guard's newest snapshot, saved as the last epoch
+    it completed (E), after 2E + 2 to 2E + 4 steps (a snapshot after a
+    step of epoch E + 1 counts as epoch E: a resume re-runs that epoch);
+    its parameters must equal bitwise the state after as many steps
+    replayed here (the steps are deterministic); ``--resume`` then re-runs
+    epoch E + 1 and finishes. Then the time of one ``guard.update`` for
+    VoteNet's and GroupFree3D's state."""
+    import os
+    import signal
+
+    import torch
+
+    from backtoreality_tpu_torch.data import get_config
+    from backtoreality_tpu_torch.data.loader import DetectionDataLoader
+    from backtoreality_tpu_torch.losses import groupfree as gf_losses
+    from backtoreality_tpu_torch.losses import votenet as vote_losses
+    from backtoreality_tpu_torch.train import (common, groupfree, votenet,
+                                               votenet_fsb)
+
+    tmp = pathlib.Path(tmp)
+    log = tmp / "preempt"
+    args = ["--data_root", str(scans), "--train_split", "all",
+            "--val_split", "all", "--device", "cuda", "--num_point", str(N),
+            "--batch_size", str(B), "--fps_candidates", "8192",
+            "--eval_freq", "100"]
+    run = args + ["--log_dir", str(log), "--guard_every_steps", "1"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cmd = [sys.executable, "-m", "backtoreality_tpu_torch.train.votenet_fsb"]
+    proc = subprocess.Popen(cmd + run + ["--max_epoch", "30"], env=env,
+                            cwd=tmp, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + DP_TIMEOUT
+        while not (log / "checkpoint.tar").exists():
+            require(proc.poll() is None and time.monotonic() < deadline,
+                    "preemption: the trainer ended before its first"
+                    " checkpoint")
+            time.sleep(0.02)
+        proc.send_signal(signal.SIGTERM)
+    finally:
+        (rc, out), = _wait([proc])
+    ckpt = common.load_checkpoint(log / "checkpoint.tar")
+    epoch = ckpt["epoch"]
+    steps = int(ckpt["optimizer"]["state"][0]["step"].item())
+    extra = steps - 2 * (epoch + 1)
+    require(rc == 143 and f"SIGTERM: saving checkpoint at epoch {epoch}"
+            in out and 0 <= extra <= 2,
+            f"preemption: exit {rc}, epoch {epoch}, {steps} steps:"
+            f"\n{out[-3000:]}")
+
+    # the state after `steps` steps, replayed in this process: epochs 0..E
+    # through the entry point, then the first `extra` steps of epoch E + 1
+    model, opt = votenet_fsb.main(args + ["--log_dir", str(tmp / "replay"),
+                                          "--max_epoch", str(epoch + 1)])
+    if extra:
+        cfg = get_config("scannet_md40")
+        flags = votenet.add_common_flags(argparse.ArgumentParser()
+                                         ).parse_args([
+            "--num_point", str(N), "--batch_size", str(B),
+            "--fps_candidates", "8192"])
+        lr_fn, bn_fn = votenet._schedules(flags)
+        common.set_learning_rate(opt, lr_fn(epoch + 1))
+        loader = DetectionDataLoader(
+            votenet._dataset(flags, cfg, scans, "all", augment=True), B,
+            seed=flags.seed, prefetch=0)
+        loader.set_epoch(epoch + 1)
+        step = votenet.make_train_step(model, opt, vote_losses.get_loss, cfg)
+        for _, batch in zip(range(extra), loader):
+            step(votenet.to_device(batch, "cuda"), bn_fn(epoch + 1))
+    state = model.state_dict()
+    differ = [k for k, v in ckpt["model"].items()
+              if not torch.equal(v, state[k].cpu())]
+    print(f"[preemption] votenet_fsb --guard_every_steps 1, SIGTERM once"
+          f" its first checkpoint was written: exit {rc}, the snapshot of"
+          f" epoch {epoch} after {steps} steps; {len(differ)} of"
+          f" {len(state)} entries differ bitwise from {steps} steps"
+          " replayed")
+    require(not differ, f"preemption: the checkpoint is not the snapshot:"
+            f" {differ[:5]}")
+    (rc, out), = _wait([subprocess.Popen(
+        cmd + run + ["--max_epoch", str(epoch + 2), "--resume",
+                     "--checkpoint_path", str(log / "checkpoint.tar")],
+        env=env, cwd=tmp, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)])
+    require(rc == 0 and f"epoch {epoch + 1:03d}" in out
+            and common.load_checkpoint(log / "checkpoint.tar")["epoch"]
+            == epoch + 1, f"preemption: --resume exited {rc}:\n{out[-3000:]}")
+    print(f"[preemption] --resume re-ran epoch {epoch + 1} and finished")
+
+    # one guard.update: VoteNet's state (Adam), GroupFree3D's (AdamW)
+    cfg = get_config("scannet_md40")
+    gflags = gf_flags()
+    torch.manual_seed(0)
+    gf = groupfree.build_model(gflags, cfg).cuda()
+    gopt = common.make_gf_optimizer(gf, lambda c: 1e-4, lambda c: 1e-5)
+    groupfree.make_train_step(gf, gopt, gf_losses.get_loss, cfg,
+                              groupfree.loss_kwargs(gflags))(
+        gf_first_batch(gf_scans, cfg, use_height=False), gflags.bn_momentum)
+    guard = common.PreemptionGuard(tmp / "guard.tar")
+    try:
+        for label, m, o in (("VoteNet", model, opt), ("GroupFree3D", gf,
+                                                      gopt)):
+            mb = sum(t.numel() * t.element_size() for t in
+                     [*m.state_dict().values(),
+                      *(v for s in o.state_dict()["state"].values()
+                        for v in s.values() if torch.is_tensor(v))]) / 2**20
+            times = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                guard.update(m, o, 0)
+                times.append((time.perf_counter() - t0) * 1e3)
+            print(f"[preemption] guard.update, {label} model and optimizer"
+                  f" ({mb:.1f} MiB): first {times[0]:.2f} ms (pinned"
+                  f" buffers allocated), then median"
+                  f" {statistics.median(times[1:]):.2f} ms  | {header}")
+    finally:
+        guard.close()
+    del gf, gopt, model, opt
+    torch.cuda.empty_cache()
+
+
+def profile_phase(scans, tmp):
+    """``[profile]``: ``votenet_fsb.main --profile_dir D`` for 16 steps (B=2
+    on the 16 scans, 2 epochs) writes a Chrome trace of host steps 10-15
+    whose kernel events name the FPS, ball-query and grouping kernels."""
+    import re
+
+    from backtoreality_tpu_torch.train import votenet_fsb
+
+    tmp = pathlib.Path(tmp)
+    trace_dir = tmp / "trace"
+    t0 = time.perf_counter()
+    votenet_fsb.main([
+        "--data_root", str(scans), "--train_split", "all", "--val_split",
+        "all", "--log_dir", str(tmp / "profile_log"), "--device", "cuda",
+        "--num_point", str(N), "--batch_size", "2", "--fps_candidates",
+        "8192", "--max_epoch", "2", "--eval_freq", "10", "--profile_dir",
+        str(trace_dir)])
+    secs = time.perf_counter() - t0
+    path = trace_dir / "trace_rank0.json"
+    require(path.exists(), f"[profile] no trace at {path}")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    found = {k: sorted({m.group(0) for m in (
+        re.search(rf"\b{k}\w*kernel", n) for n in kernels) if m})
+        for k in ("fps_", "bq_", "group_")}
+    mib = path.stat().st_size / 2**20
+    print(f"[profile] votenet_fsb.main --profile_dir: 16 steps in"
+          f" {secs:.1f} s, trace of steps 10-15 {mib:.1f} MiB,"
+          f" {len(events)} events, {len(kernels)} kernel names; ours:"
+          f" {found}")
+    require(all(found.values()), f"[profile] the trace lacks a kernel:"
+            f" {found}")
+
+
 def main() -> int:
     import torch
 
@@ -2584,6 +3457,39 @@ def main() -> int:
     fwd["paths"] = bwd["paths"] = JITTER_PATH
     local_fwd.append(fwd)
     local_bwd.append(bwd)
+    # the data-parallel paths run each call on a rank's rows, B / 2: the
+    # same checks on the first B / 2 rows (GroupFree3D's SA2-SA4 have
+    # VoteNet's shapes, its SA1 is checked with the GF kernels)
+    h = B // 2
+    print(f"[kernels: a rank's rows] B={h}, the first {h} rows of each call")
+    rec = check_fps("candidates8192_rank", xyz[:h], 2048, fps, reps=3,
+                    candidates=8192)
+    rec["paths"] = DP_VOTENET
+    fps_records.append(rec)
+    for label, x, feats, c, r, s in sa_calls:
+        on = DP_VOTENET if label in ("sa1", "vote_agg") else DP_PATHS
+        if label != "sa1":
+            rec = check_fps(f"{label}_rank", x[:h], c.shape[1], fps, reps=3)
+            rec["paths"] = on
+            fps_records.append(rec)
+        rec = check_bq(f"{label}_rank", x[:h], c[:h], r, s, bq, reps=3)
+        rec["paths"] = on
+        bq_records.append(rec)
+        fwd, bwd = check_group(f"{label}_rank",
+                               torch.cat([x[:h], feats[:h]], -1), c[:h], r,
+                               s, bq, grouping, reps=5)
+        fwd["paths"], bwd["paths"] = on, () if label == "sa1" else on
+        group_fwd.append(fwd)
+        group_bwd.append(bwd)
+        needs = {"sa1": (), "vote_agg": ("xyz", "features", "centres")}.get(
+            label, ("features",))
+        fwd, bwd = check_localize(f"{label}_rank", x[:h], feats[:h], c[:h],
+                                  r, s, bq, grouping, reps=5, needs=needs)
+        fwd["paths"] = on
+        local_fwd.append(fwd)
+        if bwd is not None:
+            bwd["paths"] = on
+            local_bwd.append(bwd)
     # without features: the coordinates alone
     _, x, _, c, r, s = sa_calls[2]
     check_localize("sa3_xyz_only", x, None, c, r, s, bq, grouping, reps=0)
@@ -2599,7 +3505,7 @@ def main() -> int:
                           points_per_object=5500, floor_points=8000)
     gf_fps, gf_bq, gf_group, gf_local, gf_local_bwd = gf_kernel_phase(
         gf_scans, cfg, fps, bq, grouping)
-    fps_records.append(gf_fps)
+    fps_records += gf_fps
     bq_records += gf_bq
     group_fwd += gf_group
     local_fwd += gf_local
@@ -2715,6 +3621,15 @@ def main() -> int:
     lap("serving exact")
     paths.update(parity_pairs_phase(tmp.name, inits, counters, header))
     lap("parity pairs")
+
+    # 10. data parallelism, the preemption guard and the profiler window
+    paths.update(dp_phase(scans, virtual, gf_scans, tmp.name, counters,
+                          header))
+    lap("data parallel")
+    preemption_phase(scans, gf_scans, tmp.name, header)
+    lap("preemption")
+    profile_phase(scans, tmp.name)
+    lap("profile")
     tmp.cleanup()
 
     def by_path(name):
@@ -2750,8 +3665,12 @@ def main() -> int:
                                           for k, v in floor.items()}
     for k in kernels_line:
         require(all(k["launches_by_path"][p] > 0
-                    for p in TRAINING + GF_TRAINING + BF16_TRAINING),
+                    for p in TRAINING + GF_TRAINING + BF16_TRAINING
+                    + DP_PATHS),
                 f"{k['name']}: not launched on every training path")
+        checked = {p for r in k["per_shape"] for p in r.get("paths", ())}
+        require(set(DP_PATHS) <= checked, f"{k['name']}: no check against"
+                f" the plain version at {set(DP_PATHS) - checked}'s shapes")
     print("[seconds] " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
           + f"; total {sum(laps.values()):.1f}")
     print(header)

@@ -26,8 +26,9 @@ width 96), dropout 0 so that a train step is deterministic.
   ``--device cpu``, evaluates, writes checkpoints that `evaluate --model
   groupfree` loads, and resumes at the next epoch with the optimizer's
   state and counts; `gf_wsb.main` trains an epoch, and so does
-  `gf_fsb.main --query_mode exact`; the unported flags are refused, and
-  so is a run of any recipe without a card unless the CPU is asked for.
+  `gf_fsb.main --query_mode exact`, and with each operations flag of the
+  JAX trainer; a run of any recipe without a card is refused unless the
+  CPU is asked for.
 * `evaluate --model groupfree --device cpu` on a checkpoint written by
   the JAX package's `save_checkpoint` (its init, the last head made to
   find the objects of a 4-scan fixture; JAX mAP@0.25 above 0.02): mAP
@@ -330,11 +331,21 @@ def test_gf_wsb_trains(two_scans, tmp_path):
     assert math.isfinite(rows[1]["mAP"])
 
 
-@pytest.mark.parametrize("extra", [["--num_devices=1"]])
-def test_gf_refuses_unported_flags(scans, tmp_path, extra):
-    with pytest.raises(SystemExit):
-        gf_fsb.main(_gf_args(scans, tmp_path / "log", 1)
-                    + ["--device", "cpu", *extra])
+@pytest.mark.parametrize("flag", [
+    "--num_devices=1", "--multihost", "--profile_dir", "--guard_every_steps=0",
+    "--ram_cache_gb=0"])
+def test_gf_takes_ops_flags(two_scans, tmp_path, monkeypatch, flag):
+    """Each operations flag of the JAX trainer is taken: one process (a
+    group of one with --multihost) trains an epoch."""
+    if flag == "--multihost":
+        monkeypatch.setenv("BTR_NUM_PROCESSES", "1")
+    extra = [flag, str(tmp_path / "trace")] if flag == "--profile_dir" \
+        else [flag]
+    model, _ = gf_fsb.main(_gf_args(two_scans, tmp_path / "log", 1)
+                           + ["--device", "cpu", *extra])
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+    assert tcommon.load_checkpoint(tmp_path / "log" / "ckpt_epoch_last.tar")[
+        "epoch"] == 0
 
 
 def test_gf_fsb_takes_query_mode_exact(two_scans, tmp_path):

@@ -7,8 +7,9 @@ B=2, N=2048, 64 proposals: `votenet_{wsb,br,br_center_refine}.main
 checkpoints; CenterRefine grafts BR's checkpoint through the partial
 restore; `evaluate.main --kind da_jitter --eval_seeds 2` scores
 CenterRefine's checkpoint and returns every seed's metrics. Without a
-card and ``--device cpu`` each entry point raises, and the parser refuses
-the flags that are not ported. `evaluate` refuses a checkpoint trained
+card and ``--device cpu`` each entry point raises, and so does
+``--multihost`` where the environment describes no process group.
+`evaluate` refuses a checkpoint trained
 with another graph than its ``--kind`` instead of scoring fresh weights.
 """
 
@@ -148,8 +149,13 @@ def test_recipes_need_cuda_unless_cpu_asked(fixtures, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flag", ["--multihost"])
-def test_recipes_refuse_unported_flags(fixtures, tmp_path, flag):
-    with pytest.raises(SystemExit):
+def test_recipes_refuse_unported_flags(fixtures, tmp_path, monkeypatch,
+                                       flag):
+    """--multihost is taken, but refused where the environment describes
+    no process group (neither the BTR_* nor torchrun's variables)."""
+    for name in ("BTR_NUM_PROCESSES", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="BTR_NUM_PROCESSES"):
         votenet_br.main(_recipe_args(fixtures, tmp_path / "log", "br")
                         + ["--device", "cpu", flag])
 

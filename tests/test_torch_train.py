@@ -21,7 +21,8 @@
   synthetic fixture with ``--device cpu``, writes a checkpoint that
   `evaluate.main` loads, resumes from it at the next epoch with the
   optimizer state restored, and raises without a card when no device is
-  given.
+  given; it takes each operations flag of the JAX trainer, and refuses
+  ``--num_devices`` above the visible cards.
 """
 
 import json
@@ -272,12 +273,30 @@ def test_votenet_fsb_needs_cuda_unless_cpu_asked(scans, tmp_path,
         votenet_fsb.main(_fsb_args(scans, tmp_path / "log", 1))
 
 
-@pytest.mark.parametrize("flag", ["--multihost", "--num_devices=1",
-                                  "--profile_dir=x"])
-def test_votenet_fsb_refuses_unported_flags(scans, tmp_path, flag):
-    with pytest.raises(SystemExit):
+@pytest.mark.parametrize("flag", [
+    "--num_devices=1", "--multihost", "--profile_dir", "--guard_every_steps=0",
+    "--ram_cache_gb=0"])
+def test_votenet_fsb_takes_ops_flags(scans, tmp_path, monkeypatch, flag):
+    """Each operations flag of the JAX trainer is taken: one process (a
+    group of one with --multihost, its address picked) trains an epoch."""
+    if flag == "--multihost":
+        monkeypatch.setenv("BTR_NUM_PROCESSES", "1")
+    extra = [flag, str(tmp_path / "trace")] if flag == "--profile_dir" \
+        else [flag]
+    model, _ = votenet_fsb.main(_fsb_args(scans, tmp_path / "log", 1)
+                                + ["--device", "cpu", *extra])
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+    assert tcommon.load_checkpoint(tmp_path / "log" / "checkpoint.tar")[
+        "epoch"] == 0
+
+
+def test_votenet_fsb_refuses_more_devices_than_visible(scans, tmp_path,
+                                                       monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="--num_devices 2"):
         votenet_fsb.main(_fsb_args(scans, tmp_path / "log", 1)
-                         + ["--device", "cpu", flag])
+                         + ["--num_devices", "2"])
 
 
 @pytest.mark.parametrize("flags", [
