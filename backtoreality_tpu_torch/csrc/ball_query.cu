@@ -13,26 +13,29 @@
 // centre has no hit at all); every index is clamped to n-1.
 //
 // The radius test is computed in f32, not through the TPU kernel's bf16
-// hi/lo compensated matrix product (a device for the TPU's matrix unit):
-// as a sum of squared differences where a lane holds centres, and where a
-// lane holds points in the expanded form |p|^2 - 2 c.p < r^2 - |c|^2, with
-// |p|^2 taken once per point and chunk and (-2 c, r^2 - |c|^2) once per
-// centre, three fused multiply-adds and a compare per test in place of
-// seven instructions. With u = 2^-24, the three multiply-adds round by at
-// most u (|p| + |c|)^2 each, |p|^2 by 2 u |p|^2 and the right side by
-// 3 u |c|^2 + u r^2: under 6 u (|p| + |c|)^2 in all, the size of the plain
-// version's own error (it takes the same form). So either form can
-// disagree with the plain version only for points whose squared distance
-// lies within rounding error (about 1e-5 at room scale) of r^2.
+// hi/lo compensated matrix product (a device for the TPU's matrix unit),
+// in the expanded form |p|^2 - 2 c.p < r^2 - |c|^2, with |p|^2 taken once
+// per point and (-2 c, r^2 - |c|^2) once per centre: three fused
+// multiply-adds and a compare per test (`inside`). Both mappings below
+// decide every (centre, point) pair by these same operations in the same
+// order, each square and sum rounded on its own (`sq3`), so a row's slots
+// do not depend on the tile, and so not on how many rows a launch holds.
+// With u = 2^-24, the three multiply-adds round by at most u (|p| + |c|)^2
+// each, |p|^2 by 2 u |p|^2 and the right side by 3 u |c|^2 + u r^2: under
+// 6 u (|p| + |c|)^2 in all, the size of the plain version's own error (it
+// takes the same form, with the products summed by a matrix product). So
+// the kernel can disagree with the plain version only for points whose
+// squared distance lies within rounding error (about 1e-5 at room scale)
+// of r^2.
 //
 // What bounds it: instructions, not bytes. A slot's scan stops at its
 // bucket's first hit, so the work depends on the data; a sparse
 // neighbourhood (the first layer: r = 0.2 in a room) scans most buckets
 // far in, up to B*M*N distance tests of 9 flops. The points of a batch row
 // are read from L2 a few hundred times and from device memory once. A
-// test in the direct form is 7 floating-point instructions (3
-// subtractions, a product, 2 fused multiply-adds, a compare), in the
-// expanded form 4; everything else an SM spends on it
+// test is 4 floating-point instructions (3 fused multiply-adds and a
+// compare), and |p|^2 5 more a point, shared by a lane's centres;
+// everything else an SM spends on it
 // (loads, addresses, loop, branch, the bookkeeping of a hit) is overhead,
 // and the first version spent 3 loads and a branch on every test. Two
 // mappings of the work, the tile of each chosen per shape by
@@ -100,6 +103,28 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// |v|^2 as (x*x + y*y) + z*z, every product and sum rounded on its own (no
+// contraction into a multiply-add): as the plain version takes it, and the
+// same in both mappings.
+__device__ __forceinline__ float sq3(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
+                   __fmul_rn(z, z));
+}
+
+// A centre as q = (-2 cx, -2 cy, -2 cz, r^2 - |c|^2).
+__device__ __forceinline__ float4 centre_query(const float* c, float r2) {
+  return make_float4(-2.f * c[0], -2.f * c[1], -2.f * c[2],
+                     __fsub_rn(r2, sq3(c[0], c[1], c[2])));
+}
+
+// |p|^2 - 2 c . p against r^2 - |c|^2, for q = centre_query(c) and
+// pp = |p|^2: whether p lies inside the ball. `d` gets the left side.
+__device__ __forceinline__ bool inside(const float4 q, float x, float y,
+                                       float z, float pp, float& d) {
+  d = fmaf(q.z, z, fmaf(q.y, y, fmaf(q.x, x, pp)));
+  return d < q.w;
+}
+
 // The block's epilogue. first[c * (nsample + 1) + s]: the first hit of
 // centre c in bucket s as an offset within the bucket, or -1 (read for
 // s < live only). Resolves the slot-fill and writes the block's rows.
@@ -159,19 +184,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 
   const int b = blockIdx.y;
   const int m0 = blockIdx.x * centres;
-  float cx[R], cy[R], cz[R];
+  float4 cq[R];  // centre_query of each centre (nothing is inside a dead one)
   bool alive[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int c = m0 + g * 32 * R + r * 32 + lane;
     alive[r] = c < m;
-    cx[r] = cy[r] = cz[r] = 0.f;
-    if (alive[r]) {
-      const float* p = ctr + b * csb + c * csn;
-      cx[r] = p[0];
-      cy[r] = p[1];
-      cz[r] = p[2];
-    }
+    cq[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (alive[r]) cq[r] = centre_query(ctr + b * csb + c * csn, r2);
   }
   const float* row = xyz + b * xsb;
   const bool aligned =
@@ -242,12 +262,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         for (int r = 0; r < R; ++r) bits[r] = 0;
 #pragma unroll
         for (int u = 0; u < kRound; ++u) {
+          const float x = p[3 * u], y = p[3 * u + 1], z = p[3 * u + 2];
+          const float pp = sq3(x, y, z);  // once for the lane's R centres
 #pragma unroll
           for (int r = 0; r < R; ++r) {
-            const float dx = cx[r] - p[3 * u];
-            const float dy = cy[r] - p[3 * u + 1];
-            const float dz = cz[r] - p[3 * u + 2];
-            if (dx * dx + dy * dy + dz * dz < r2) bits[r] |= 1u << u;
+            float d;
+            if (inside(cq[r], x, y, z, pp, d)) bits[r] |= 1u << u;
           }
         }
         bool done = true;
@@ -280,7 +300,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
              idx_out, hit_out);
 }
 
-// A lane's 4 points against one centre q = (-2 c, r^2 - |c|^2): d[i] =
+// A lane's 4 points against one centre q = centre_query(c): d[i] =
 // |p_i|^2 - 2 c . p_i, and whether any is inside.
 __device__ __forceinline__ bool test4(const float4 q, const float (&px)[4],
                                       const float (&py)[4],
@@ -289,8 +309,8 @@ __device__ __forceinline__ bool test4(const float4 q, const float (&px)[4],
   bool any = false;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    d[i] = fmaf(q.z, pz[i], fmaf(q.y, py[i], fmaf(q.x, px[i], pp[i])));
-    any = any || d[i] < q.w;
+    const bool in = inside(q, px[i], py[i], pz[i], pp[i], d[i]);
+    any = any || in;
   }
   return any;
 }
@@ -329,14 +349,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int b = blockIdx.y;
   const int m0 = blockIdx.x * centres;
   const int rows = min(centres, m - m0);  // <= kMaxPointCentres
-  // a centre as (-2 cx, -2 cy, -2 cz, r^2 - |c|^2): a point p is inside iff
-  // |p|^2 + (-2 c) . p < r^2 - |c|^2
-  for (int c = tid; c < rows; c += blockDim.x) {
-    const float* p = ctr + b * csb + (long long)(m0 + c) * csn;
-    const float x = p[0], y = p[1], z = p[2];
-    cen[c] = make_float4(-2.f * x, -2.f * y, -2.f * z,
-                         r2 - ((x * x + y * y) + z * z));
-  }
+  for (int c = tid; c < rows; c += blockDim.x)
+    cen[c] = centre_query(ctr + b * csb + (long long)(m0 + c) * csn, r2);
   __syncthreads();
   const float* row = xyz + b * xsb;
   unsigned visits = 0;
@@ -361,7 +375,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           py[i] = __ldg(p + 1);
           pz[i] = __ldg(p + 2);
         }
-        pp[i] = (px[i] * px[i] + py[i] * py[i]) + pz[i] * pz[i];
+        pp[i] = sq3(px[i], py[i], pz[i]);
       }
       visits += __popc(pending);
       for (unsigned todo = pending; todo != 0; todo &= todo - 1) {

@@ -1,10 +1,14 @@
-"""Shape libraries for the synthetic fixtures.
+"""Virtual-scene synthesis: place ModelNet40-style shapes into room
+layouts with gravity- and collision-aware refinement, then export
+detection training scans.
 
-Copies of ``backtoreality_tpu/datagen/{shapes,library}.py``, changed only
-in their imports: `library.rich_procedural_library` makes the
-geometry-differentiated classes of the shapefix fixture, which
-`data.synthetic.write_synthetic_scans` takes as `shape_library`. The
-scene synthesis of the JAX package's ``datagen`` is not copied.
+Host-side numpy, copied from ``backtoreality_tpu/datagen/`` and changed
+only in its imports (`shapes.solid_mer` computes scikit-learn's 2-means in
+numpy, so the port needs no scikit-learn; cv2 is optional, as there).
+``python -m backtoreality_tpu_torch.datagen.cli`` exports real scans and
+synthesizes the virtual source domain of BR (``--source_data_root``);
+`library.rich_procedural_library` makes the geometry-differentiated
+classes of the port's shapefix fixture (`shapefix.py`).
 """
 
 from backtoreality_tpu_torch.datagen.shapes import (
@@ -15,5 +19,14 @@ from backtoreality_tpu_torch.datagen.shapes import (
 from backtoreality_tpu_torch.datagen.library import (
     ShapeLibrary,
     procedural_library,
+    load_modelnet40_library,
     rich_procedural_library,
+)
+from backtoreality_tpu_torch.datagen.synthesis import (
+    SceneObject,
+    generate_initial_positions,
+    gravity_aware_positions,
+    collision_aware_positions,
+    export_scene,
+    synthesize_scene,
 )

@@ -7,10 +7,13 @@ MER convention matches the reference: ((cx, cy), (long, short), theta)
 with theta in degrees, anticlockwise, the angle of the LONG side.
 
 A copy of ``backtoreality_tpu/datagen/shapes.py``, except that
-`solid_mer` splits the footprint with a plain 2-means
-(`_two_means_labels`) in place of sklearn's KMeans, so that the port
-needs no scikit-learn. The port's fixtures do not use the MER: the synthetic
-scans read a shape's points only.
+`solid_mer` splits the footprint with `_kmeans2_labels`, a numpy copy of
+what ``sklearn.cluster.KMeans(n_clusters=2, n_init=4).fit(xy).labels_``
+computes (scikit-learn 1.9.0), in place of the call itself: the port
+needs no scikit-learn. Like the call, it draws its k-means++ seeds from
+numpy's global ``RandomState``, the same draws in the same order, so
+under one ``np.random.seed`` both give one split and leave the state
+alike.
 """
 
 from __future__ import annotations
@@ -72,21 +75,120 @@ def mer_canonical(rect):
     return ((cx, cy), l_s, theta)
 
 
-def _two_means_labels(xy: np.ndarray) -> np.ndarray:
-    """2-means labels by Lloyd's iterations from the two extremes of the
-    principal axis."""
-    d = xy - xy.mean(0)
-    proj = d @ np.linalg.svd(d, full_matrices=False)[2][0]
-    centres = xy[[proj.argmin(), proj.argmax()]]
-    for _ in range(100):
-        label = ((xy[:, None] - centres[None]) ** 2).sum(-1).argmin(1)
-        if label.min() == label.max():
-            break
-        new = np.stack([xy[label == k].mean(0) for k in range(2)])
-        if np.array_equal(new, centres):
-            break
-        centres = new
-    return label
+def _sq_distances(c: np.ndarray, x: np.ndarray,
+                  x_norms: np.ndarray) -> np.ndarray:
+    """Squared distances (len(c), len(x)) as sklearn's
+    ``_euclidean_distances(c, x, Y_norm_squared=x_norms, squared=True)``
+    takes them in float64: -2 c.x, plus |c|^2, plus |x|^2, clipped at 0."""
+    d = -2 * (c @ x.T)
+    d += np.einsum("ij,ij->i", c, c)[:, None]
+    d += x_norms[None]
+    np.maximum(d, 0, out=d)
+    return d
+
+
+def _kmeans_plusplus2(x: np.ndarray, x_norms: np.ndarray) -> np.ndarray:
+    """Two k-means++ seeds (``_kmeans_plusplus``): the first drawn
+    uniformly, the second the best of 2 + int(log 2) candidates drawn in
+    proportion to the squared distance, from the global RandomState."""
+    weight = np.ones(len(x), dtype=x.dtype)
+    trials = 2 + int(np.log(2))
+    centers = np.empty((2, x.shape[1]), dtype=x.dtype)
+    centers[0] = x[np.random.choice(len(x), p=weight / weight.sum())]
+    closest = _sq_distances(centers[0, np.newaxis], x, x_norms)
+    pot = closest @ weight
+    ids = np.searchsorted(np.cumsum(weight * closest),
+                          np.random.uniform(size=trials) * pot)
+    np.clip(ids, None, closest.size - 1, out=ids)
+    to_candidates = _sq_distances(x[ids], x, x_norms)
+    np.minimum(closest, to_candidates, out=to_candidates)
+    pots = to_candidates @ weight.reshape(-1, 1)
+    centers[1] = x[ids[np.argmin(pots)]]
+    return centers
+
+
+def _assign(x: np.ndarray, centers: np.ndarray) -> np.ndarray:
+    """Lloyd's E-step (``_update_chunk_dense``): |c|^2 - 2 x.c, the
+    lowest-numbered centre on a tie."""
+    norms = np.einsum("ij,ij->i", centers, centers)
+    d = norms[None] + -2.0 * (x @ centers.T)
+    return np.argmin(d, axis=1).astype(np.int32)
+
+
+def _lloyd_step(x, centers):
+    """One E- and M-step (``lloyd_iter_chunked_dense``): the labels, the
+    new centres (each a sum in index order times the reciprocal of its
+    weight; an empty cluster takes the point farthest from its centre,
+    ``_relocate_empty_clusters_dense``) and each centre's shift."""
+    labels = _assign(x, centers)
+    clusters = len(centers)
+    # bincount adds in index order
+    new = np.stack([np.bincount(labels, x[:, j], clusters)
+                    for j in range(x.shape[1])], 1)
+    weight = np.bincount(labels, minlength=clusters).astype(x.dtype)
+    empty = np.flatnonzero(weight == 0)
+    if len(empty):
+        dist = ((x - centers[labels]) ** 2).sum(axis=1)
+        far = np.argpartition(dist, -len(empty))[:-len(empty) - 1:-1]
+        if dist.max() != 0:
+            for k, j in zip(empty, far):
+                new[labels[j]] -= x[j]
+                new[k] = x[j]
+                weight[k] = 1.0
+                weight[labels[j]] -= 1.0
+    heaviest = np.argmax(weight)
+    for k in range(clusters):
+        if weight[k] > 0:
+            new[k] *= 1.0 / weight[k]
+        else:
+            new[k] = new[heaviest]
+    d = new - centers
+    shift = np.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+    return labels, new, shift
+
+
+def _kmeans2_labels(xy: np.ndarray) -> np.ndarray:
+    """``KMeans(n_clusters=2, n_init=4).fit(xy).labels_`` (scikit-learn
+    1.9.0, ``KMeans.fit`` with Lloyd's algorithm) for float64 (N, 2)
+    points, drawing from numpy's global RandomState as it does: the
+    tolerance 1e-4 scaled by the mean variance, the data centred on its
+    mean, 4 k-means++ seeds in turn, at most 300 Lloyd's iterations each
+    until the labels repeat or the centres move within the tolerance
+    (then one more E-step), and a later run kept only if its inertia is
+    lower and its split differs. scikit-learn sums a cluster over threads
+    in any order; this sums in index order, which can move a label only
+    for a point within rounding of the two centres' bisector."""
+    x = np.array(xy, dtype=np.float64, order="C")
+    tol = np.mean(np.var(x, axis=0)) * 1e-4
+    x -= x.mean(axis=0)
+    x_norms = np.einsum("ij,ij->i", x, x)
+    best_labels, best_inertia = None, None
+    for _ in range(4):
+        centers = _kmeans_plusplus2(x, x_norms)
+        labels_old = np.full(len(x), -1, dtype=np.int32)
+        strict = False
+        for _ in range(300):
+            labels, centers, shift = _lloyd_step(x, centers)
+            if np.array_equal(labels, labels_old):
+                strict = True
+                break
+            if (shift ** 2).sum() <= tol:
+                break
+            labels_old = labels
+        if not strict:
+            labels = _assign(x, centers)
+        d = x - centers[labels]
+        inertia = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]).sum()
+        if best_inertia is None or (
+                inertia < best_inertia
+                and not _same_split(labels, best_labels)):
+            best_labels, best_inertia = labels, inertia
+    return best_labels
+
+
+def _same_split(a: np.ndarray, b: np.ndarray) -> bool:
+    """Two labellings equal up to a renaming (``_is_same_clustering``)."""
+    return bool((a == b).all() or (a != b).all())
 
 
 def solid_mer(points: np.ndarray):
@@ -95,7 +197,7 @@ def solid_mer(points: np.ndarray):
     shape is not "solid", take the MER of the larger cluster."""
     xys = points[:, 0:2]
     rect = min_area_rect(xys)
-    label = _two_means_labels(xys)
+    label = _kmeans2_labels(xys)
     small = xys[label == 0] if (label == 0).sum() < (label == 1).sum() \
         else xys[label == 1]
     other = xys[label == 1] if (label == 0).sum() < (label == 1).sum() \

@@ -16,10 +16,13 @@ Two implementations of one function:
   dense distances in the expanded form (counterpart of
   ``_ball_query_stratified_xla`` and ``_stratified_math``);
 * :func:`_ball_query_stratified_cuda` — the hand-written kernels of
-  ``csrc/ball_query.cu``, which test ``|c - p|^2 < r^2`` directly or, where
-  a lane holds points, as ``|p|^2 - 2 c.p < r^2 - |c|^2``.
+  ``csrc/ball_query.cu``, which test ``|p|^2 - 2 c.p < r^2 - |c|^2`` by
+  the same operations in the same order in every tile, so that a row's
+  slots do not depend on the tile :func:`plan` picks, nor on the rows of
+  a launch.
 
-They can disagree only on points within rounding error of the radius.
+The plain version sums ``c.p`` by a matrix product, so it can disagree
+with the kernels only on points within rounding error of the radius.
 
 The exact first-k query of the reference, :func:`ball_query`
 (``query_mode=exact``, the mode reference-trained checkpoints expect), is

@@ -37,11 +37,15 @@ gated on two steps from one state giving bitwise-equal parameters.
    (64 a scene, most padded at +1000 and hitting no point) over the sa2
    points and the 288-wide fp2 features: the ball query in every tile, the
    fused grouping at C = 3 + 288 divided by r = 0.8, its backward timed,
-   with the length of its longest list. The data-parallel paths' shapes
-   too: every call of VoteNet's training forward and GroupFree3D's SA1 on
-   the first 4 of the 8 rows (a rank's share), each record tagged with
-   those paths; every kernel must have such a record. Every wrapper
-   raises on bfloat16 and float16 inputs without launching.
+   with the length of its longest list. ``[ball query tiles]``: at every
+   SA shape of both detectors and at both jitter heads, every tile the
+   ball query's plan may pick gives bitwise the same slots and hit flags,
+   and so do the first 4 rows alone against the same rows among 8 (a
+   row's slots do not depend on the rows of a launch). The data-parallel
+   paths' shapes too: every call of VoteNet's training forward and
+   GroupFree3D's SA1 on the first 4 of the 8 rows (a rank's share), each
+   record tagged with those paths; every kernel must have such a record.
+   Every wrapper raises on bfloat16 and float16 inputs without launching.
    Kernel, plain and library times are medians of CUDA events, with the
    host's launches queued ahead of the device so that they time device
    work; the plain and library backwards of the grouping run under the
@@ -134,6 +138,23 @@ gated on two steps from one state giving bitwise-equal parameters.
    fails unless the late ratio (the mean train loss over the last 11
    matched epochs over the reference's) lies within 0.85-1.15, printed
    beside the JAX leg's, with the mAP rows (not gated).
+   ``[datagen -> br]``, the paper's data path on the port's own datagen:
+   16 ScanNet-format scans (60000 floor and wall vertices and 5 or 6
+   labelled md40 objects each, 4 of them holding a keyboard, cup or
+   bottle) and 2 Matterport-format houses of 4 regions (4-6 turned
+   objects each) written before the learning check, their real domains
+   exported (``export-real``; ``organize-matterport``,
+   ``export-real-matterport``) and the two syntheses (``synthesize
+   --procedural --num_aug 2``, ``synthesize-matterport --procedural``)
+   started as processes of the port's datagen CLI, run beside the
+   learning check, the exact-mode phases and the parity pairs; then
+   their walls and the collision test's share printed, at least 16 and 8
+   virtual scenes required, and ``votenet_br.main`` at B=8, N=40000,
+   ``--fps_candidates 8192`` on each (ScanNet one epoch of 2 steps,
+   Matterport two of one, with rotated boxes and 12 heading bins), an
+   evaluation each and the launches checked; one serving forward of the
+   ScanNet BR model through ``eval.dump_helper.dump_results``, its PLYs
+   required.
 9. Data parallelism, the preemption guard and the profiler window.
    ``[data parallel]``: ``votenet_fsb.main --multihost`` as a group of one
    (``BTR_NUM_PROCESSES=1``, NCCL) bitwise the plain run (losses and final
@@ -147,13 +168,13 @@ gated on two steps from one state giving bitwise-equal parameters.
    buffers against world 1's step on the 8 rows. As the step runs, the
    loss, all gradients and all buffers, each as one vector, within 1e-4
    or 4 times world 1 against itself on the rows reversed (f32: only the
-   order of the sums differs, and it flips ReLU masks, max-pool winners
-   and ball-query slots within rounding of a tie; their counts printed);
-   with world 1's discrete choices replayed (``Pinned``), every tensor
-   within 1e-4 of its largest magnitude or 4 times its own error in the
-   reversal; both ranks bitwise equal, two runs bitwise equal, each
-   rank's launches a forward and a step checked; each step's wall and
-   peak memory a rank.
+   order of the sums differs, and it flips ReLU masks and max-pool
+   winners within rounding of a tie; their counts printed); with world
+   1's discrete choices replayed (``Pinned``; the ball query runs live),
+   every tensor within 1e-4 of its largest magnitude or 4 times its own
+   error in the reversal; both ranks bitwise equal, two runs bitwise
+   equal, each rank's launches a forward and a step checked; each step's
+   wall and peak memory a rank.
    Then the JAX package's two-process contract (tests/test_multiprocess.py)
    for ``votenet_fsb`` (2 epochs, then ``--resume`` for a third),
    ``votenet_br`` and ``gf_fsb`` (1 epoch), two ``--multihost`` processes
@@ -213,7 +234,9 @@ AHEAD_CYCLES = 10_000_000
 # jitter head's layer; the GroupFree3D paths run at their CLI defaults
 # (N=50000, FPS over the full cloud, no height feature)
 SERVING = ("serving",)
-TRAINING = ("training", "wsb", "br", "br_center_refine")
+# votenet_br on the port's own virtual scenes: ScanNet, Matterport
+DATAGEN_PATHS = ("datagen_br", "datagen_br_matterport")
+TRAINING = ("training", "wsb", "br", "br_center_refine") + DATAGEN_PATHS
 ALL_PATHS = SERVING + TRAINING
 JITTER_PATH = ("br_center_refine",)
 GF_TRAINING = ("gf_fsb", "gf_wsb", "gf_br", "gf_br_center_refine")
@@ -599,6 +622,37 @@ def check_bq_edges(bq, device):
                     " give that point in every slot")
         if label == "strided":
             require(not x.is_contiguous(), "bq: the strided case is not")
+
+
+def check_bq_tiles(label, xyz, ctr, radius, nsample, bq):
+    """[ball query tiles]: every tile :func:`tiles` lists for the shape
+    gives bitwise the same idx and hit, and so does every tile on the first
+    B / 2 rows alone (a rank's share) against those rows among B: a row's
+    slots do not depend on the tile nor on the rows of a launch."""
+    import torch
+
+    b, n, _ = xyz.shape
+    m = ctr.shape[1]
+    ref, counted = None, []
+    for rows in (b, b // 2):
+        tiles = bq.tiles(rows, n, m, nsample)
+        require(bq.plan(rows, n, m, nsample) in tiles,
+                f"bq tiles {label}: the plan's tile is not listed")
+        for tile in tiles:
+            idx, hit = bq._ball_query_stratified_cuda(
+                xyz[:rows], ctr[:rows], radius, nsample, tile)
+            if ref is None:
+                ref = idx, hit
+            off = ((idx != ref[0][:rows]) | (hit != ref[1][:rows])).sum()
+            require(off.item() == 0,
+                    f"bq tiles {label} [{tile_name(bq, tile)}] at"
+                    f" B={rows}: {off.item()} slots differ from"
+                    f" [{tile_name(bq, tiles[0])}] at B={b}")
+        chosen = tile_name(bq, bq.plan(rows, n, m, nsample))
+        counted.append(f"{len(tiles)} at B={rows} (plan [{chosen}])")
+    torch.cuda.synchronize()
+    print(f"[ball query tiles] {label} N={n} M={m} S={nsample}: every tile"
+          f" bitwise equal, {' and '.join(counted)}")
 
 
 def check_group(label, points, ctr, radius, nsample, bq, grouping, reps):
@@ -1677,6 +1731,7 @@ def gf_kernel_phase(scans, cfg, fps, bq, grouping):
     fps_rec = check_fps("gf_sa1", xyz, 2048, fps, reps=3, others=True,
                         want_cluster=True)
     bq_rec = check_bq("gf_sa1", xyz, ctr, 0.2, 64, bq, reps=5)
+    check_bq_tiles("gf_sa1", xyz, ctr, 0.2, 64, bq)
     fps_rec["paths"] = bq_rec["paths"] = GF_PATHS
     group_recs, local_recs = [], []
     for label, feats in (("gf_sa1", None), ("gf_sa1_height", height)):
@@ -1703,6 +1758,7 @@ def gf_kernel_phase(scans, cfg, fps, bq, grouping):
           f" sa2 and fp2 from the GF forward, C = 3 + 288")
     ctjt = ("gf_ctjt", ep["sa2_xyz"], ep["fp2_features"], centres, 0.8, 16)
     ctjt_bq = check_bq(*ctjt[:2], *ctjt[3:], bq, reps=5)
+    check_bq_tiles(*ctjt[:2], *ctjt[3:], bq)
     ctjt_fwd, ctjt_bwd = check_localize(*ctjt, bq, grouping, reps=10,
                                         needs=("features",))
     ctjt_bq["paths"] = ctjt_fwd["paths"] = ctjt_bwd["paths"] = GF_JITTER_PATH
@@ -2479,6 +2535,423 @@ def parity_pairs_phase(tmp, inits, counters, header):
 
 
 # ---------------------------------------------------------------------------
+# [datagen -> br]: the paper's data path through the port's own datagen
+# ---------------------------------------------------------------------------
+
+# A room of the scans: its floor (x, y) and wall height in metres, and the
+# vertices of its floor, its walls and each object (about 60000 floor and
+# wall vertices a scan, as a ScanNet room's mesh holds)
+ROOM = (6.0, 5.0, 2.5)
+ROOM_FLOOR_POINTS = 50000
+ROOM_WALL_POINTS = 10000
+OBJECT_POINTS = 4000
+# (raw category, footprint x, y and height in metres): md40 furniture, and
+# the small classes that gate a scan for the scarce-class pass of
+# `synthesize --num_aug`, placed on a piece of furniture
+FURNITURE = (("bed", 2.0, 1.5, 0.6), ("table", 1.2, 0.8, 0.75),
+             ("chair", 0.5, 0.5, 0.9), ("sofa", 2.0, 0.9, 0.8),
+             ("bookshelf", 1.0, 0.35, 1.8), ("desk", 1.2, 0.6, 0.75),
+             ("dresser", 1.0, 0.5, 0.9), ("nightstand", 0.5, 0.4, 0.55),
+             ("toilet", 0.4, 0.7, 0.8), ("bathtub", 1.6, 0.75, 0.55))
+GATED = (("keyboard", 0.45, 0.15, 0.03), ("cup", 0.08, 0.08, 0.1),
+         ("bottle", 0.08, 0.08, 0.25))
+# Matterport's md40 classes (the adapter's MD40_IDS_MP), in its raw
+# category names
+MP_FURNITURE = (("bed", 2.0, 1.5, 0.6), ("table", 1.2, 0.8, 0.75),
+                ("chair", 0.5, 0.5, 0.9), ("sofa", 2.0, 0.9, 0.8),
+                ("desk", 1.2, 0.6, 0.75), ("dresser", 1.0, 0.5, 0.9),
+                ("nightstand", 0.5, 0.4, 0.55), ("stool", 0.4, 0.4, 0.45),
+                ("bench", 1.4, 0.4, 0.45), ("toilet", 0.4, 0.7, 0.8),
+                ("bathtub", 1.6, 0.75, 0.55))
+# ScanNet scans: 16 real scans (2 steps of 8 as the target domain), the
+# first DATAGEN_GATED of them with a gated object, so that --num_aug 2
+# adds two virtual scenes for each; Matterport: 8 regions (2 houses of
+# 4), one virtual scene each
+DATAGEN_SCANS = 16
+DATAGEN_GATED = 4
+MP_HOUSES, MP_REGIONS = 2, 4
+# the least source scenes: two distinct batches of 8 (ScanNet), one
+# (Matterport: 8 regions, two epochs of one step)
+DATAGEN_MIN_SCENES = {"scannet": 16, "matterport": 8}
+DATAGEN_TIMEOUT = 600  # seconds for a dataset's synthesis
+# the port's CLI as `python -m` runs it, with the seconds spent in
+# synthesis._min_dist2 (the collision test, the host's hot spot) printed
+DATAGEN_TIMED_CLI = (
+    "import runpy, time\n"
+    "from backtoreality_tpu_torch.datagen import synthesis\n"
+    "spent = [0.0, 0]\n"
+    "inner = synthesis._min_dist2\n"
+    "def timed(a, b):\n"
+    "    t = time.perf_counter()\n"
+    "    try:\n"
+    "        return inner(a, b)\n"
+    "    finally:\n"
+    "        spent[0] += time.perf_counter() - t\n"
+    "        spent[1] += 1\n"
+    "synthesis._min_dist2 = timed\n"
+    "t0 = time.perf_counter()\n"
+    "runpy.run_module('backtoreality_tpu_torch.datagen.cli',"
+    " run_name='__main__', alter_sys=True)\n"
+    "print(f'[wall] {time.perf_counter() - t0:.3f} s, _min_dist2'"
+    " f' {spent[0]:.3f} s over {spent[1]} calls')\n")
+
+
+def write_ply(path, xyz):
+    """A binary little-endian PLY of float xyz and uchar rgba, as ScanNet
+    and Matterport meshes store their vertices."""
+    import numpy as np
+
+    rec = np.zeros(len(xyz), dtype=[("x", "<f4"), ("y", "<f4"),
+                                    ("z", "<f4"), ("r", "u1"), ("g", "u1"),
+                                    ("b", "u1"), ("a", "u1")])
+    rec["x"], rec["y"], rec["z"] = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    rec["r"] = rec["g"] = rec["b"] = 128
+    rec["a"] = 255
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {len(xyz)}\n"
+              "property float x\nproperty float y\nproperty float z\n"
+              "property uchar red\nproperty uchar green\n"
+              "property uchar blue\nproperty uchar alpha\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode())
+        f.write(rec.tobytes())
+
+
+def box_points(rng, n, dims, theta, at):
+    """`n` points on the five visible faces of a box of `dims` (x, y,
+    height), turned by `theta` about z, its footprint centred at `at` (x,
+    y) and its bottom at z = at[2]."""
+    import numpy as np
+
+    dx, dy, dz = dims
+    areas = np.array([dx * dy, dx * dz, dx * dz, dy * dz, dy * dz])
+    face = rng.choice(5, n, p=areas / areas.sum())
+    p = (rng.random((n, 3)) - [0.5, 0.5, 0.0]) * dims
+    p[face == 0, 2] = dz
+    p[face == 1, 1], p[face == 2, 1] = -dy / 2, dy / 2
+    p[face == 3, 0], p[face == 4, 0] = -dx / 2, dx / 2
+    c, s = np.cos(theta), np.sin(theta)
+    p[:, 0:2] = p[:, 0:2] @ np.array([[c, s], [-s, c]])
+    return p + at
+
+
+def room_parts(rng, furniture, count, gated, rotated):
+    """A room: (raw category, points) for its floor, its walls and `count`
+    pieces of `furniture`, one to a cell of a 3 x 2 grid, turned by a
+    random angle where `rotated`; `gated` small objects stand on the first
+    piece."""
+    import numpy as np
+
+    lx, ly, lz = ROOM
+    floor = np.zeros((ROOM_FLOOR_POINTS, 3))
+    floor[:, 0:2] = rng.random((ROOM_FLOOR_POINTS, 2)) * [lx, ly]
+    # the four walls: y = 0, x = lx, y = ly, x = 0
+    side = rng.integers(0, 4, ROOM_WALL_POINTS)
+    u = rng.random(ROOM_WALL_POINTS)
+    wall = np.stack([np.select([side == 1, side == 3], [lx, 0.0], u * lx),
+                     np.select([side == 0, side == 2], [0.0, ly], u * ly),
+                     rng.random(ROOM_WALL_POINTS) * lz], 1)
+    parts = [("floor", floor), ("wall", wall)]
+    cells = rng.permutation(6)[:count]
+    picks = rng.permutation(len(furniture))[:count]
+    for k, (cell, pick) in enumerate(zip(cells, picks)):
+        name, dx, dy, dz = furniture[pick]
+        theta = rng.random() * np.pi if rotated else 0.0
+        # the cell's centre, moved at most 0.3 m
+        at = np.array([(cell % 3 + 0.5) * lx / 3,
+                       (cell // 3 + 0.5) * ly / 2, 0.0])
+        at[0:2] += (rng.random(2) - 0.5) * 0.6
+        parts.append((name, box_points(rng, OBJECT_POINTS, (dx, dy, dz),
+                                       theta, at)))
+        if k == 0:
+            for g, (small, sx, sy, sz) in enumerate(gated):
+                spot = [at[0] + (g - 0.5) * 0.3, at[1], dz]
+                parts.append((small, box_points(
+                    rng, OBJECT_POINTS // 4, (sx, sy, sz), theta, spot)))
+    return parts
+
+
+def write_parts(stem, parts, segs_name, agg_name, align=None):
+    """One mesh of `parts`: `stem`.ply (in the raw frame: `align` maps it
+    to the aligned one), a segment a part in `segs_name` and an object a
+    part in `agg_name`."""
+    import numpy as np
+
+    xyz = np.concatenate([p for _, p in parts])
+    if align is not None:
+        homo = np.concatenate([xyz, np.ones((len(xyz), 1))], 1)
+        xyz = (homo @ np.linalg.inv(align).T)[:, 0:3]
+    write_ply(stem.with_suffix(".ply"), xyz)
+    seg = np.concatenate([np.full(len(p), i) for i, (_, p) in
+                          enumerate(parts)])
+    segs_name.write_text(json.dumps({"segIndices": seg.tolist()}))
+    agg_name.write_text(json.dumps({"segGroups": [
+        {"objectId": i, "label": name, "segments": [i]}
+        for i, (name, _) in enumerate(parts)]}))
+
+
+def write_scannet_scans(root, seed=0):
+    """DATAGEN_SCANS scans in ScanNet's layout (`<scan>/<scan>_vh_clean_2
+    .ply`, `.0.010000.segs.json`, `.aggregation.json`, and `<scan>.txt`
+    with a random turn about z as its axisAlignment), named after the first
+    scans of the train split: 5 or 6 pieces of furniture each, the first
+    DATAGEN_GATED with a keyboard, a cup or a bottle on one."""
+    import numpy as np
+
+    from backtoreality_tpu_torch.data.config import ASSETS
+
+    rng = np.random.default_rng(seed)
+    names = (ASSETS / "scannet" / "scannetv2_train.txt").read_text().split()
+    for i, scan in enumerate(names[:DATAGEN_SCANS]):
+        d = root / scan
+        d.mkdir(parents=True)
+        gated = [GATED[i % len(GATED)]] if i < DATAGEN_GATED else []
+        parts = room_parts(rng, FURNITURE, 5 + i % 2, gated, rotated=False)
+        a = rng.random() * 2 * np.pi
+        align = np.eye(4)
+        align[0:2, 0:2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        align[0:2, 3] = rng.random(2) * 2
+        write_parts(d / f"{scan}_vh_clean_2", parts,
+                    d / f"{scan}_vh_clean_2.0.010000.segs.json",
+                    d / f"{scan}.aggregation.json", align)
+        (d / f"{scan}.txt").write_text(
+            "axisAlignment = " + " ".join(map(str, align.ravel())) + "\n")
+    return names[:DATAGEN_SCANS]
+
+
+def write_matterport_houses(root, seed=1):
+    """MP_HOUSES houses of MP_REGIONS regions in Matterport's layout
+    (`house<h>/region_segmentations/region<r>.{ply,vsegs.json,
+    semseg.json}`): 4 to 6 pieces of furniture a region, each turned by a
+    random angle."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for h in range(MP_HOUSES):
+        d = root / f"house{h}" / "region_segmentations"
+        d.mkdir(parents=True)
+        for r in range(MP_REGIONS):
+            parts = room_parts(rng, MP_FURNITURE, 4 + (h * MP_REGIONS + r) % 3,
+                               [], rotated=True)
+            write_parts(d / f"region{r}", parts, d / f"region{r}.vsegs.json",
+                        d / f"region{r}.semseg.json")
+
+
+def datagen_cli(*args, timed=False):
+    """The argv of the port's datagen CLI (`timed`: under
+    DATAGEN_TIMED_CLI)."""
+    head = ([sys.executable, "-c", DATAGEN_TIMED_CLI] if timed
+            else [sys.executable, "-m", "backtoreality_tpu_torch.datagen.cli"])
+    return head + [str(a) for a in args]
+
+
+def run_datagen(argv, log):
+    """One datagen command to its end; fails on a nonzero exit."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        rc = subprocess.run(argv, cwd=ROOT, env=env, stdout=out,
+                            stderr=subprocess.STDOUT,
+                            timeout=DATAGEN_TIMEOUT).returncode
+    secs = time.perf_counter() - t0
+    require(rc == 0, f"datagen {argv[3:5]} exited {rc}:"
+                     f" {pathlib.Path(log).read_text()[-2000:]}")
+    return secs
+
+
+def start_datagen(tmp):
+    """[datagen -> br], its first half: the ScanNet scans and Matterport
+    houses written, the real target domains exported
+    (``export-real``; ``organize-matterport``, ``export-real-matterport``),
+    then both syntheses started in processes of their own (``synthesize
+    --procedural --num_aug 2 --seed 0``; ``synthesize-matterport
+    --procedural --seed 0``) to run beside the phases that follow. Returns
+    what :func:`datagen_br_phase` needs."""
+    import atexit
+    import os
+
+    root = pathlib.Path(tmp) / "datagen"
+    scans, houses = root / "scannet_scans", root / "mp_houses"
+    t0 = time.perf_counter()
+    names = write_scannet_scans(scans)
+    write_matterport_houses(houses)
+    wrote = time.perf_counter() - t0
+    real = root / "scannet_train_detection_data_md40"
+    mp_scans = root / "mp_scans"
+    mp_real = root / "matterport_train_detection_data_md40"
+    secs = {"export-real": run_datagen(datagen_cli(
+        "export-real", "--scans_dir", scans, "--out", real,
+        "--max_points", 50000), root / "export_real.log")}
+    secs["organize-matterport"] = run_datagen(datagen_cli(
+        "organize-matterport", "--houses_dir", houses, "--out", mp_scans),
+        root / "organize.log")
+    secs["export-real-matterport"] = run_datagen(datagen_cli(
+        "export-real-matterport", "--scans_dir", mp_scans, "--out", mp_real,
+        "--max_points", 50000), root / "export_real_mp.log")
+    print(f"[datagen -> br] {len(names)} ScanNet scans and"
+          f" {MP_HOUSES * MP_REGIONS} Matterport regions written in"
+          f" {wrote:.1f} s; " + ", ".join(f"{k} {v:.1f} s"
+                                           for k, v in secs.items()))
+    # the source roots hold "obj": the datasets draw a virtual scan's
+    # centre jitter fresh there
+    jobs = {"scannet": (root / "scannet_train_detection_data_md40_obj_aug",
+                        ["synthesize", "--scans_dir", scans, "--procedural",
+                         "--num_aug", 2, "--seed", 0]),
+            "matterport": (
+                root / "matterport_train_detection_data_md40_obj_aug",
+                ["synthesize-matterport", "--scans_dir", mp_scans,
+                 "--procedural", "--seed", 0])}
+    # one BLAS thread a process: the phases that run meanwhile keep the
+    # host's other cores
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    running = {}
+    for name, (out, args) in jobs.items():
+        log = open(root / f"synthesize_{name}.log", "w+")
+        proc = subprocess.Popen(
+            datagen_cli(*args, "--out", out, timed=True), cwd=ROOT, env=env,
+            stdout=log, stderr=subprocess.STDOUT)
+        # stopped with the smoke, whatever ends it
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())
+        running[name] = dict(proc=proc, out=out, log=log,
+                             start=time.perf_counter())
+    return dict(real=real, mp_real=mp_real, running=running)
+
+
+def finish_synthesis(running):
+    """Both syntheses to their end: {dataset: (wall s, _min_dist2 s, its
+    calls, virtual scenes)}. Fails on a nonzero exit, a limit reached or
+    too few scenes."""
+    import re
+
+    done = {}
+    for name, job in running.items():
+        left = DATAGEN_TIMEOUT - (time.perf_counter() - job["start"])
+        try:
+            rc = job["proc"].wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            job["proc"].kill()
+            job["proc"].wait()
+            rc = f"killed at its {DATAGEN_TIMEOUT} s"
+        job["log"].seek(0)
+        text = job["log"].read()
+        job["log"].close()
+        require(rc == 0, f"synthesize ({name}) exited {rc}: {text[-2000:]}")
+        timed = re.search(r"\[wall\] ([0-9.]+) s, _min_dist2 ([0-9.]+) s"
+                          r" over (\d+) calls", text)
+        require(timed is not None, f"synthesize ({name}): no [wall] line")
+        scenes = sorted(p.name[:-len("_vert.npy")]
+                        for p in job["out"].glob("*_vert.npy"))
+        require(len(scenes) >= DATAGEN_MIN_SCENES[name],
+                f"synthesize ({name}): {len(scenes)} virtual scenes, fewer"
+                f" than {DATAGEN_MIN_SCENES[name]}")
+        done[name] = (float(timed[1]), float(timed[2]), int(timed[3]),
+                      scenes)
+    return done
+
+
+def datagen_br_phase(started, tmp, counters, header):
+    """[datagen -> br], its second half: both syntheses awaited (their
+    walls and _min_dist2's share printed), then ``votenet_br.main`` at
+    VoteNet's widths (B=8, N=40000, --fps_candidates 8192) on each export
+    as the target and its synthesis as the source: ScanNet one epoch of 2
+    steps, Matterport (``--dataset matterport_md40``: rotated boxes, 12
+    heading bins) two epochs of one; one evaluation each, the launches
+    checked, finite losses and mAP. Then one serving forward of the
+    ScanNet BR model (``evaluate``'s ``--kind da`` graph from
+    ``train_BR.tar``) through ``eval.dump_helper.dump_results``. Returns
+    the launches by path."""
+    import numpy as np
+    import torch
+
+    from backtoreality_tpu_torch.data import get_config
+    from backtoreality_tpu_torch.data.dataset import DetectionDataset
+    from backtoreality_tpu_torch.data.loader import DetectionDataLoader
+    from backtoreality_tpu_torch.eval.dump_helper import dump_results
+    from backtoreality_tpu_torch.train import common, evaluate, votenet_br
+
+    t0 = time.perf_counter()
+    synth = finish_synthesis(started["running"])
+    for name, (wall, dist, calls, scenes) in synth.items():
+        print(f"[datagen -> br] synthesize ({name}): {len(scenes)} virtual"
+              f" scenes in {wall:.1f} s of its process, _min_dist2"
+              f" {dist:.1f} s ({dist / wall:.3f} of it) over {calls} calls")
+    print(f"  waited {time.perf_counter() - t0:.1f} s for them here")
+    tmp = pathlib.Path(tmp)
+    launches = {}
+    cases = ((DATAGEN_PATHS[0], "scannet_md40", started["real"],
+              started["running"]["scannet"]["out"], 1),
+             (DATAGEN_PATHS[1], "matterport_md40", started["mp_real"],
+              started["running"]["matterport"]["out"], 2))
+    for path, dataset, real, source, epochs in cases:
+        cfg = get_config(dataset)
+        sizes = [len(DetectionDataset(cfg, root, split=split,
+                                      num_points=N))
+                 for root, split in ((source, "train_aug"), (real, "all"))]
+        steps = epochs * min(s // B for s in sizes)
+        evals = math.ceil(sizes[1] / B)
+        require(steps == 2, f"{path}: {sizes} source and target scenes"
+                            f" make {steps} steps, not 2")
+        log = tmp / f"{path}_log"
+        reset(counters)
+        t0 = time.perf_counter()
+        votenet_br.main([
+            "--dataset", dataset, "--data_root", str(real),
+            "--source_data_root", str(source), "--train_split", "all",
+            "--val_split", "all", "--log_dir", str(log), "--device", "cuda",
+            "--num_point", str(N), "--batch_size", str(B),
+            "--fps_candidates", "8192", "--max_epoch", str(epochs),
+            "--eval_freq", str(epochs)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[path] = read_counts(counters)
+        print(f"[datagen -> br] votenet_br.main --dataset {dataset}:"
+              f" {sizes[0]} virtual and {sizes[1]} real scenes, {steps}"
+              f" steps + one evaluation in {secs:.1f} s; launches"
+              f" {launches[path]}")
+        check_counts(path, launches[path], "da", 2 * steps + evals, steps)
+        rows = [json.loads(line) for line in
+                (log / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in rows if "loss" in r]
+        maps = [r["mAP"] for r in rows if "mAP" in r]
+        require(len(losses) == epochs and len(maps) == 1
+                and all(map(math.isfinite, losses + maps)),
+                f"{path}: loss {losses}, mAP {maps}")
+        print(f"  epoch losses {', '.join(f'{v:.4f}' for v in losses)},"
+              f" eval mAP@0.25 {maps[0]:.4f}")
+
+    # one serving forward of the ScanNet BR model, dumped
+    cfg = get_config("scannet_md40")
+    flags = evaluate.add_common_flags(argparse.ArgumentParser()).parse_args(
+        [])
+    model = evaluate.build_model(flags, cfg, "da")
+    common.restore_weights(model, tmp / f"{DATAGEN_PATHS[0]}_log"
+                           / "train_BR.tar", "--kind da")
+    model.cuda().eval()
+    ds = DetectionDataset(cfg, started["real"], split="all", num_points=N,
+                          use_height=True)
+    batch = next(iter(DetectionDataLoader(ds, B, shuffle=False, prefetch=0)))
+    with torch.inference_mode():
+        ep = model(*(torch.from_numpy(a).cuda()
+                     for a in common.model_args(batch, False)))
+    end_points = {k: v.cpu().numpy() for k, v in ep.items()
+                  if torch.is_tensor(v)}
+    end_points.update(batch)
+    dump = tmp / "datagen_br_dump"
+    t0 = time.perf_counter()
+    dump_results(end_points, str(dump), cfg)
+    names = {p.name for p in dump.iterdir()}
+    want = {"000000_pc.ply", "000000_pred_confident_nms_bbox.ply",
+            "000000_gt_bbox.ply"}
+    require(want <= names, f"dump_results: {sorted(want - names)} missing")
+    print(f"[datagen -> br] dump_results: {len(names)} PLYs for {B} scenes"
+          f" in {time.perf_counter() - t0:.1f} s  | {header}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Data parallelism, the preemption guard and the profiler window
 # ---------------------------------------------------------------------------
 
@@ -2488,13 +2961,16 @@ DP_WORLD = 2
 # and max-pool winners that lie within rounding of a tie, and each flip
 # moves a whole term of a gradient that at init is a sum of many terms of
 # both signs: world 1 against itself on the rows in reverse parts the
-# gradients by about 1% (PERF.md, section 6). So the step is compared
-# twice. As it runs: the loss, all gradients as one vector and all BN
-# buffers as one, each relative to its norm, within DP_TOL or DP_NOISE
-# times that reversal's error. With the choices pinned (Pinned: world
-# 1's replayed in world 2 and in the reversal): every tensor within DP_TOL
-# of its largest magnitude, or DP_NOISE times the reversal's error of that
-# tensor where rounding alone parts it further (dp_pinned_error)
+# gradients by about 1% (PERF.md, section 6). The ball query is not among
+# those choices: its kernel decides a row's slots alike in every tile, so
+# a rank's 4 rows get the slots they get among 8 ([ball query tiles]).
+# So the step is compared twice. As it runs: the loss, all gradients as
+# one vector and all BN buffers as one, each relative to its norm, within
+# DP_TOL or DP_NOISE times that reversal's error. With the choices pinned
+# (Pinned: world 1's replayed in world 2 and in the reversal): every
+# tensor within DP_TOL of its largest magnitude, or DP_NOISE times the
+# reversal's error of that tensor where rounding alone parts it further
+# (dp_pinned_error)
 DP_TOL = 1e-4
 DP_NOISE = 4
 DP_TIMEOUT = 600  # seconds for a pair of ranks or of trainer processes
@@ -2506,20 +2982,18 @@ class Pinned:
     """The discrete choices of a train step, recorded in one run and
     replayed in another: every ReLU's mask (``torch.relu``), every
     max-pool's winner over a group's samples (``torch.amax`` over axis 2
-    of a (B, M, S, C) tensor), every SA layer's ball query (its slots and
-    hit flags), GroupFree3D's top-k queries and every ``nn_distance``
-    nearest neighbour of the criteria. A choice whose inputs lie within
-    rounding of a tie (a pre-activation at 0, two samples' features, two
-    distances, a point at the radius) flips when the order of a sum
-    changes, and each flip moves a whole term of the gradient; the ball
-    query's tile, and with it how a distance at the radius rounds, also
-    follows the rows of a launch (``ops/ball_query.py``: 4 rows may take
-    another tile than 8). Replayed, two runs part by rounding alone. Recording computes the replay's
-    function (a mask product, a gather at the winner), so the two runs are
-    the same function. Rows are the first axis of every choice: a replay
-    takes the recorded rows in reverse (`reverse`) and, on a tensor with
-    fewer rows than recorded, this rank's share of them (a rank's forward;
-    a criterion sees the gathered global batch)."""
+    of a (B, M, S, C) tensor), GroupFree3D's top-k queries and every
+    ``nn_distance`` nearest neighbour of the criteria. A choice whose
+    inputs lie within rounding of a tie (a pre-activation at 0, two
+    samples' features, two distances) flips when the order of a sum
+    changes, and each flip moves a whole term of the gradient. Replayed,
+    two runs part by rounding alone. The ball query runs live: its slots
+    follow a row's own coordinates, in any tile. Recording computes the
+    replay's function (a mask product, a gather at the winner), so the two
+    runs are the same function. Rows are the first axis of every choice: a
+    replay takes the recorded rows in reverse (`reverse`) and, on a tensor
+    with fewer rows than recorded, this rank's share of them (a rank's
+    forward; a criterion sees the gathered global batch)."""
 
     def __init__(self, log=None):
         self.log = [] if log is None else log
@@ -2568,19 +3042,6 @@ class Pinned:
         out = x.gather(2, win)
         return out if keepdim else out.squeeze(2)
 
-    def _ball_query(self, xyz, centres, radius, nsample, return_hit=False):
-        made = []
-
-        def query():
-            made.extend(self.real["ball_query"](xyz, centres, radius,
-                                                nsample, return_hit=True))
-            return made[0]
-
-        idx = self._choice(query, xyz.shape[0], "ball-query slots")
-        hit = self._choice(lambda: made[1], xyz.shape[0], "ball-query hits")
-        idx, hit = idx.to(xyz.device), hit.to(xyz.device)
-        return (idx, hit) if return_hit else idx
-
     def _top_k(self, scores, k):
         return self._choice(lambda: self.real["top_k"](scores, k),
                             scores.shape[0], "top-k queries").to(
@@ -2607,13 +3068,11 @@ class Pinned:
     def _sites(self):
         import torch
 
-        from backtoreality_tpu_torch import ops
         from backtoreality_tpu_torch.losses import groupfree as gf_losses
         from backtoreality_tpu_torch.losses import votenet as vote_losses
         from backtoreality_tpu_torch.models.groupfree import detector
 
         return ((torch, "relu", self._relu), (torch, "amax", self._amax),
-                (ops, "ball_query_stratified", self._ball_query),
                 (detector, "top_k_indices", self._top_k),
                 (vote_losses, "nn_distance", self._nn_distance),
                 (gf_losses, "nn_distance", self._nn_distance))
@@ -2624,9 +3083,7 @@ class Pinned:
         for module, attr, fn in self._sites():
             self.saved.append((module, attr, getattr(module, attr)))
             setattr(module, attr, fn)
-        self.real = {"amax": self.saved[1][2],
-                     "ball_query": self.saved[2][2],
-                     "top_k": self.saved[3][2]}
+        self.real = {"amax": self.saved[1][2], "top_k": self.saved[2][2]}
         return self
 
     def __exit__(self, *exc):
@@ -3430,6 +3887,8 @@ def main() -> int:
     rec["paths"] = JITTER_PATH
     bq_records.append(rec)
     check_bq_edges(bq, device)
+    for label, x, _, c, r, s in sa_calls + (ctjt,):
+        check_bq_tiles(label, x, c, r, s, bq)
     group_fwd, group_bwd, local_fwd, local_bwd = [], [], [], []
     for label, x, feats, c, r, s in sa_calls:
         fwd, bwd = check_group(label, torch.cat([x, feats], -1), c, r, s,
@@ -3602,6 +4061,11 @@ def main() -> int:
     paths.update(gf_da_phase(gf_scans, gf_virtual, tmp.name, cfg, counters,
                              header))
     lap("gf br/center refine")
+    # [datagen -> br]: the scans written and exported, the syntheses
+    # started; they run on the host's spare cores beside the phases up to
+    # the parity pairs, which time no host-bound step
+    datagen = start_datagen(tmp.name)
+    lap("datagen start")
     gf_learning_check(tmp.name, counters)
     lap("gf learning check")
 
@@ -3621,6 +4085,8 @@ def main() -> int:
     lap("serving exact")
     paths.update(parity_pairs_phase(tmp.name, inits, counters, header))
     lap("parity pairs")
+    paths.update(datagen_br_phase(datagen, tmp.name, counters, header))
+    lap("datagen br")
 
     # 10. data parallelism, the preemption guard and the profiler window
     paths.update(dp_phase(scans, virtual, gf_scans, tmp.name, counters,

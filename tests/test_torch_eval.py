@@ -5,8 +5,8 @@
   any difference is a bug).
 * `evaluate.main` runs end to end on a tiny synthetic fixture with
   ``--device cpu``, and raises without CUDA when no device is given.
-* No file of the port, nor chip_smoke.py, imports JAX, the JAX package or
-  msgpack.
+* No file of the port, nor chip_smoke.py, imports JAX, the JAX package,
+  msgpack or scikit-learn (the machine with the card has none).
 """
 
 import argparse
@@ -136,7 +136,7 @@ def test_evaluate_needs_cuda_unless_cpu_asked(scans, tmp_path, monkeypatch):
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|optax|msgpack)\b|\bflax\b"
+    r"^\s*(import|from)\s+(jax|flax|optax|msgpack|sklearn)\b|\bflax\b"
     r"|\bbacktoreality_tpu\.", re.M)
 
 
@@ -158,7 +158,11 @@ def test_port_imports_no_jax():
                    "losses/groupfree.py", "train/groupfree.py",
                    "train/gf_fsb.py", "train/gf_wsb.py", "train/gf_br.py",
                    "train/gf_br_center_refine.py", "tools/torch_import.py",
-                   "tools/parity_fixture.py", "tools/parity_report.py"):
+                   "tools/parity_fixture.py", "tools/parity_report.py",
+                   "datagen/synthesis.py", "datagen/context.py",
+                   "datagen/scannet_adapter.py",
+                   "datagen/matterport_adapter.py", "datagen/cli.py",
+                   "eval/dump_helper.py"):
         assert port / module in files, module
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
