@@ -1,20 +1,23 @@
-"""VoteNet training criteria: FSB, WSB, BR and BR+CenterRefine.
+"""VoteNet training criteria: FSB, WSB, BR and BR+CenterRefine, and the
+experimental BoxNet, separate-DA and CAM criteria.
 
 Counterpart of ``backtoreality_tpu/losses/votenet.py`` (reference
 `detection/Votenet/models/loss_helper.py`: constants :19-22, vote losses
 :24-109, objectness :111-152, box :154-228, weak centre :242-304,
-compositions :336-464, DA :548-664, jitter :667-803). Every function
-takes `end_points` (model outputs merged with the GT labels,
-channels-last) and each criterion returns ``(loss, aux)``, where aux
-holds every scalar the reference logs plus the label tensors downstream
-code needs. Nothing is mutated. The boxnet, separate-DA and CAM criteria
-are not ported.
+compositions :336-464, DA :548-664, jitter :667-803, separate DA
+:806-907, CAM :910-1039; `loss_helper_boxnet.py`). Every function takes
+`end_points` (model outputs merged with the GT labels, channels-last) and
+each criterion returns ``(loss, aux)``, where aux holds every scalar the
+reference logs plus the label tensors downstream code needs. Nothing is
+mutated. `get_loss_cam` and `get_loss_DA_cam` read ``cam`` and
+``vote_feature_d_pred``, which no model of either package produces.
 
 Label keys (from the data pipeline, the reference's names):
   center_label (B,K2,3), box_label_mask (B,K2), sem_cls_label (B,K2),
   heading_class_label (B,K2), heading_residual_label (B,K2),
   size_class_label (B,K2), size_residual_label (B,K2,3),
-  vote_label (B,N,9), vote_label_mask (B,N), center_jitter (B,K2,3).
+  vote_label (B,N,9), vote_label_mask (B,N), center_jitter (B,K2,3),
+  cloud_label (B,num_class).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from backtoreality_tpu_torch.losses.common import (compute_jitter_loss,
                                                    masked_mean, one_hot_f32,
                                                    refine_center_labels,
+                                                   sigmoid_bce_with_logits,
                                                    softmax_ce,
                                                    softmax_focal_loss)
 from backtoreality_tpu_torch.losses.common import take_rows as _take
@@ -250,6 +254,65 @@ def get_loss_weak(end_points, config):
     return loss, aux
 
 
+def compute_sem_cls_loss(end_points, config):
+    """Scene-level multi-label semantic loss (`loss_helper.py:306-333`):
+    BCE between the mean-pooled per-proposal class logits and the scene
+    class-indicator vector (`cloud_label`)."""
+    del config
+    cloud_label = end_points["cloud_label"].to(torch.float32)
+    cloud_pred = torch.mean(end_points["sem_cls_scores"], dim=1)
+    return torch.mean(sigmoid_bce_with_logits(cloud_pred, cloud_label))
+
+
+def compute_objectness_loss_boxnet(end_points):
+    """BoxNet objectness (`loss_helper_boxnet.py:20-61`): the label is
+    the seed's GT vote mask gathered through the aggregation indices, no
+    near/far don't-care zone. Returns (loss, label, mask, assignment)."""
+    gt_center = end_points["center_label"][:, :, 0:3]
+    _, ind1, _, _ = nn_distance(end_points["aggregated_vote_xyz"],
+                                gt_center)
+    seed_labels = _take(end_points["vote_label_mask"],
+                        end_points["seed_inds"])
+    objectness_label = _take(seed_labels,
+                             end_points["aggregated_vote_inds"]).to(
+        torch.int32)
+    objectness_mask = torch.ones_like(objectness_label,
+                                      dtype=torch.float32)
+    loss = softmax_ce(end_points["objectness_scores"], objectness_label,
+                      OBJECTNESS_CLS_WEIGHTS)
+    loss = masked_mean(loss, objectness_mask)
+    return loss, objectness_label, objectness_mask, ind1
+
+
+def get_loss_boxnet(end_points, config):
+    """BoxNet criterion (`loss_helper_boxnet.py:64-122`): no vote loss,
+    (0.5 obj + box + 0.1 sem) * 10. Returns (loss, aux)."""
+    aux = {}
+    (objectness_loss, objectness_label, objectness_mask,
+     object_assignment) = compute_objectness_loss_boxnet(end_points)
+    aux.update(objectness_loss=objectness_loss,
+               objectness_label=objectness_label,
+               objectness_mask=objectness_mask,
+               object_assignment=object_assignment)
+    end_points = dict(end_points, objectness_label=objectness_label,
+                      object_assignment=object_assignment)
+
+    (center_loss, heading_cls_loss, heading_reg_loss, size_cls_loss,
+     size_reg_loss, sem_cls_loss) = compute_box_and_sem_cls_loss(
+         end_points, config)
+    box_loss = (center_loss + 0.1 * heading_cls_loss + heading_reg_loss
+                + 0.1 * size_cls_loss + size_reg_loss)
+    aux.update(center_loss=center_loss, box_loss=box_loss,
+               sem_cls_loss=sem_cls_loss)
+
+    loss = (0.5 * objectness_loss + box_loss + 0.1 * sem_cls_loss) * 10.0
+    aux["loss"] = loss
+    pos_ratio, neg_ratio, obj_acc = _objectness_stats(
+        end_points, objectness_label, objectness_mask)
+    aux.update(pos_ratio=pos_ratio, neg_ratio=neg_ratio, obj_acc=obj_acc)
+    return loss, aux
+
+
 SOURCE_COEFFICIENT = 0.1
 DA_COEFFICIENT = 0.5
 
@@ -359,4 +422,129 @@ def get_loss_DA_jitter(end_points_S, end_points_T, epoch, config):
             + 0.1 * sem_cls_loss + da_loss
             + SOURCE_COEFFICIENT * jitter_loss_S) * 10.0
     aux["loss"] = loss
+    return loss, aux
+
+
+def _positive_weight(end_points):
+    """Each proposal's positive-objectness softmax, (B, K, 1)."""
+    return torch.softmax(end_points["objectness_scores"], -1)[..., 1:]
+
+
+def get_loss_DA_separate(end_points_S, end_points_T, config):
+    """Experimental DA variant (`loss_helper.py:806-907`; on no recipe's
+    path). Against `get_loss_DA`: both domains weigh equally (no 0.1
+    source coefficient), the source keeps the full seed-vote loss
+    (`compute_vote_loss`), and the alignment is the local per-proposal
+    L2-to-domain term alone at coefficient 1.0 (`:887-897`), each proposal
+    weighted by its positive-objectness softmax. Returns (loss, aux)."""
+    aux = {}
+    vote_loss_S = compute_vote_loss(end_points_S)
+    vote_loss_T = compute_weak_vote_loss(end_points_T)
+    vote_loss = vote_loss_S + vote_loss_T
+    aux.update(vote_loss_S=vote_loss_S, vote_loss_T=vote_loss_T)
+
+    (objectness_loss_S, objectness_label_S, objectness_mask_S,
+     assignment_S) = compute_objectness_loss(end_points_S)
+    (objectness_loss_T, objectness_label_T, _,
+     assignment_T) = compute_objectness_loss(end_points_T)
+    objectness_loss = objectness_loss_S + objectness_loss_T
+    aux.update(objectness_loss_S=objectness_loss_S,
+               objectness_loss_T=objectness_loss_T)
+
+    ep_S = dict(end_points_S, objectness_label=objectness_label_S,
+                object_assignment=assignment_S)
+    ep_T = dict(end_points_T, objectness_label=objectness_label_T,
+                object_assignment=assignment_T)
+    (center_loss_S, heading_cls_loss, heading_reg_loss, size_cls_loss_S,
+     size_reg_loss, sem_cls_loss_S) = compute_box_and_sem_cls_loss(
+         ep_S, config)
+    center_loss_T, size_cls_loss_T, sem_cls_loss_T = (
+        compute_center_and_sem_cls_loss(ep_T, config))
+    box_loss = (center_loss_S + 0.1 * heading_cls_loss + heading_reg_loss
+                + 0.1 * size_cls_loss_S + size_reg_loss
+                + center_loss_T + 0.1 * size_cls_loss_T)
+    sem_cls_loss = sem_cls_loss_S + sem_cls_loss_T
+    aux.update(center_loss_S=center_loss_S, center_loss_T=center_loss_T,
+               sem_cls_loss=sem_cls_loss, box_loss=box_loss)
+
+    # source pushed to 0, target to 1
+    da_loss = (torch.mean(torch.square(end_points_S["local_d_pred"])
+                          * _positive_weight(end_points_S))
+               + torch.mean(torch.square(1.0 - end_points_T["local_d_pred"])
+                            * _positive_weight(end_points_T)))
+    aux["da_loss"] = da_loss
+
+    loss = (vote_loss + 0.5 * objectness_loss + box_loss
+            + 0.1 * sem_cls_loss + da_loss) * 10.0
+    aux["loss"] = loss
+    pos_ratio, neg_ratio, obj_acc = _objectness_stats(
+        end_points_S, objectness_label_S, objectness_mask_S)
+    aux.update(pos_ratio=pos_ratio, neg_ratio=neg_ratio, obj_acc=obj_acc)
+    return loss, aux
+
+
+def get_loss_cam(end_points, config):
+    """Class-activation-map pretext loss (`loss_helper.py:910-943`; the
+    model that produced ``cam`` was removed from the reference): BCE
+    between the globally average-pooled per-class activation map (B, K,
+    num_class, channels-last) and the scene class-indicator vector.
+    Returns (loss, aux)."""
+    del config
+    cam_gap = torch.mean(end_points["cam"], dim=1)  # (B, num_class)
+    cloud_label = end_points["cloud_label"].to(torch.float32)
+    loss = torch.mean(sigmoid_bce_with_logits(cam_gap, cloud_label))
+    return loss, {"loss": loss}
+
+
+def _cam_domain_loss(end_points, domain_value, flip_local):
+    """The three alignment terms of `get_loss_DA_cam`: local L2 (weighted
+    by positive objectness), global focal (gamma 5) and vote-feature focal
+    (gamma 3), each at 0.5."""
+    global_d = end_points["global_d_pred"]
+    local_d = end_points["local_d_pred"]
+    domain = torch.full((global_d.shape[0],), domain_value,
+                        dtype=torch.int64, device=global_d.device)
+    local = 1.0 - local_d if flip_local else local_d
+    return (0.5 * torch.mean(torch.square(local)
+                             * _positive_weight(end_points))
+            + 0.5 * softmax_focal_loss(global_d, domain, gamma=5)
+            + 0.5 * softmax_focal_loss(end_points["vote_feature_d_pred"],
+                                       domain, gamma=3))
+
+
+def get_loss_DA_cam(end_points_S, end_points_T, config):
+    """CAM-augmented DA variant (`loss_helper.py:946-1039`): full
+    supervision on the source (the full seed-vote loss included), the
+    scene-level semantic loss on the target (`compute_sem_cls_loss`,
+    weighted 2x), and a three-term alignment (`_cam_domain_loss`). Needs
+    ``vote_feature_d_pred`` (B, 2). Returns (loss, aux)."""
+    aux = {}
+    vote_loss = compute_vote_loss(end_points_S)
+    aux["vote_loss"] = vote_loss
+
+    (objectness_loss, objectness_label_S, objectness_mask_S,
+     assignment_S) = compute_objectness_loss(end_points_S)
+    aux["objectness_loss"] = objectness_loss
+
+    ep_S = dict(end_points_S, objectness_label=objectness_label_S,
+                object_assignment=assignment_S)
+    (center_loss, heading_cls_loss, heading_reg_loss, size_cls_loss,
+     size_reg_loss, sem_cls_loss_S) = compute_box_and_sem_cls_loss(
+         ep_S, config)
+    box_loss = (center_loss + 0.1 * heading_cls_loss + heading_reg_loss
+                + 0.1 * size_cls_loss + size_reg_loss)
+    sem_cls_loss_T = compute_sem_cls_loss(end_points_T, config)
+    sem_cls_loss = sem_cls_loss_S + 2.0 * sem_cls_loss_T
+    aux.update(box_loss=box_loss, sem_cls_loss_T=sem_cls_loss_T)
+
+    da_loss = (_cam_domain_loss(end_points_S, 0, False)
+               + _cam_domain_loss(end_points_T, 1, True))
+    aux["da_loss"] = da_loss
+
+    loss = (vote_loss + 0.5 * objectness_loss + box_loss
+            + 0.1 * sem_cls_loss + da_loss) * 10.0
+    aux["loss"] = loss
+    pos_ratio, neg_ratio, obj_acc = _objectness_stats(
+        end_points_S, objectness_label_S, objectness_mask_S)
+    aux.update(pos_ratio=pos_ratio, neg_ratio=neg_ratio, obj_acc=obj_acc)
     return loss, aux

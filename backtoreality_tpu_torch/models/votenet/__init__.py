@@ -2,6 +2,7 @@
 
 from backtoreality_tpu_torch.models.votenet.backbone import (
     Pointnet2Backbone,
+    Pointnet2BackboneCam,
     Pointnet2BackboneJitter,
 )
 from backtoreality_tpu_torch.models.votenet.voting import VotingModule
@@ -13,11 +14,14 @@ from backtoreality_tpu_torch.models.votenet.votenet import VoteNet
 from backtoreality_tpu_torch.models.votenet.da import (
     VoteNetDA,
     VoteNetDAJitter,
+    VoteNetDAJitter2,
     grad_reverse,
 )
+from backtoreality_tpu_torch.models.votenet.boxnet import BoxNet
 
 __all__ = [
     "Pointnet2Backbone",
+    "Pointnet2BackboneCam",
     "Pointnet2BackboneJitter",
     "VotingModule",
     "ProposalModule",
@@ -25,5 +29,7 @@ __all__ = [
     "VoteNet",
     "VoteNetDA",
     "VoteNetDAJitter",
+    "VoteNetDAJitter2",
+    "BoxNet",
     "grad_reverse",
 ]

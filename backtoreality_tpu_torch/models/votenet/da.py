@@ -15,7 +15,8 @@ gradient reversal:
 Submodules carry the JAX package's names, so `bridge.state_dict_from_jax`
 maps every leaf. The domain heads and the jitter discriminator compute in
 the model's `dtype`, the jitter-prediction net in `head_dtype`, as in the
-JAX package. ``VoteNetDAJitter2`` is not ported.
+JAX package. ``VoteNetDAJitter2`` keeps the plain backbone and groups the
+aggregated votes (their features detached) around the GT centres.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from torch import nn
 from backtoreality_tpu_torch.models.votenet.backbone import \
     Pointnet2BackboneJitter
 from backtoreality_tpu_torch.models.votenet.votenet import VoteNet
-from backtoreality_tpu_torch.nn import Dense
+from backtoreality_tpu_torch.nn import Dense, SAModuleCenters
 from backtoreality_tpu_torch.nn.norm import BatchNorm
 
 
@@ -99,8 +100,8 @@ class VoteNetDA(VoteNet):
         super().__init__(*args, dtype=dtype, **kwargs)
         self.da_heads = _DAHeads(dtype)
 
-    def forward(self, point_clouds):
-        return self.da_heads(super().forward(point_clouds))
+    def forward(self, point_clouds, generator=None):
+        return self.da_heads(super().forward(point_clouds, generator))
 
 
 class VoteNetDAJitter(VoteNetDA):
@@ -128,14 +129,55 @@ class VoteNetDAJitter(VoteNetDA):
         self.jitter_net = _ConvBNStack(width, (64,), out=3,
                                        dtype=head_dtype)
 
-    def forward(self, point_clouds, center_label, sem_cls_label):
+    def forward(self, point_clouds, center_label, sem_cls_label,
+                generator=None):
         """center_label (B, K, 3) and sem_cls_label (B, K): the (weak)
         GT centres and classes the jitter head groups at."""
         end_points = self.backbone_net(point_clouds, center_label,
                                        sem_cls_label)
         end_points["jitter_pred"] = self.jitter_net(
             end_points["center_features"])  # (B, K, 3)
-        end_points = self.da_heads(self.heads(end_points))
+        end_points = self.da_heads(self.heads(end_points, generator))
         jd = self.jitter_netD(grad_reverse(end_points["center_features"]))
         end_points["jitter_d_pred"] = torch.sigmoid(jd)
+        return end_points
+
+
+class VoteNetDAJitter2(VoteNetDA):
+    """`VoteNet_DA_jitter2` (`votenet_DA.py:335-487`): the plain backbone,
+    voting, proposals and the domain heads, then a centre-jitter head
+    ``ctjt_head`` (r=0.8, 16 slots, one MLP layer to 128, no radius
+    normalization, `votenet_DA.py:412-419`) that groups the aggregated
+    votes at the GT centres, their features detached (the positions keep
+    their gradient, as in the JAX package), and ``jitter_net`` on those
+    features beside the class one-hot."""
+
+    def __init__(self, num_class: int, num_heading_bin: int,
+                 num_size_cluster: int, mean_size_arr,
+                 query_mode: str = "stratified",
+                 dtype: torch.dtype | None = None,
+                 head_dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(num_class, num_heading_bin, num_size_cluster,
+                         mean_size_arr, query_mode=query_mode, dtype=dtype,
+                         head_dtype=head_dtype, **kwargs)
+        self.num_class = num_class
+        self.ctjt_head = SAModuleCenters(radius=0.8, nsample=16,
+                                         in_features=128, mlp=[128],
+                                         query_mode=query_mode, dtype=dtype)
+        self.jitter_net = _ConvBNStack(128 + num_class, (64,), out=3,
+                                       dtype=head_dtype)
+
+    def forward(self, point_clouds, center_label, sem_cls_label,
+                generator=None):
+        """center_label (B, K, 3) and sem_cls_label (B, K): the (weak)
+        GT centres and classes the jitter head groups at."""
+        end_points = super().forward(point_clouds, generator)
+        cf = self.ctjt_head(end_points["aggregated_vote_xyz"],
+                            end_points["aggregated_vote_features"].detach(),
+                            center_label)
+        onehot = torch.eye(self.num_class, dtype=cf.dtype,
+                           device=cf.device)[sem_cls_label.long()]
+        end_points["center_features"] = torch.cat([cf, onehot], dim=-1)
+        end_points["jitter_pred"] = self.jitter_net(
+            end_points["center_features"])  # (B, K, 3)
         return end_points

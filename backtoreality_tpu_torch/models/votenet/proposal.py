@@ -2,9 +2,10 @@
 
 Counterpart of ``backtoreality_tpu/models/votenet/proposal.py``
 (reference `proposal_module.py:18-120`): an SA layer clusters votes
-around `num_proposal` centres sampled by FPS on the votes (``vote_fps``)
-or on the seeds (``seed_fps``; ``random`` is not ported); a pointwise
-head emits
+around `num_proposal` centres sampled by FPS on the votes (``vote_fps``),
+by FPS on the seeds (``seed_fps``) or uniformly over the seeds
+(``random``: drawn from a ``torch.Generator`` the caller passes, or given
+as `sample_inds`); a pointwise head emits
 2 objectness + 3 centre-offset + 2*NH heading + 4*NS size + num_class
 semantic logits, decoded into the end_points dict in f32.
 """
@@ -65,8 +66,8 @@ class ProposalModule(PointwiseMLP):
                    + num_class)
         # no bias before BN (see voting.py)
         super().__init__(128, [128, 128], out_dim, dtype=dtype)
-        if sampling not in ("vote_fps", "seed_fps"):
-            raise NotImplementedError(f"sampling {sampling!r} is not ported")
+        if sampling not in ("vote_fps", "seed_fps", "random"):
+            raise ValueError(f"unknown sampling {sampling!r}")
         self.num_proposal = num_proposal
         self.sampling = sampling
         self.num_class = num_class
@@ -78,14 +79,32 @@ class ProposalModule(PointwiseMLP):
             in_features=seed_feat_dim, mlp=[128, 128, 128],
             query_mode=query_mode, dtype=dtype)
 
-    def forward(self, xyz, features, end_points):
-        """xyz: vote positions (B, num_vote, 3); features (B, num_vote, C)."""
+    def forward(self, xyz, features, end_points, generator=None,
+                sample_inds=None):
+        """xyz: vote positions (B, num_vote, 3); features (B, num_vote, C).
+
+        ``random`` sampling draws (B, num_proposal) seed indices, uniform
+        over the seeds, from `generator` (a ``torch.Generator`` on the
+        votes' device; the global one is never read), unless `sample_inds`
+        (B, num_proposal) gives them."""
+        if sample_inds is not None and self.sampling != "random":
+            raise ValueError(f"sampling {self.sampling!r} takes no"
+                             " sample_inds")
         if self.sampling == "vote_fps":
             new_xyz, new_features, sample_inds = self.vote_aggregation(
                 xyz, features)
-        else:  # seed_fps: the centres are the FPS of the seeds
-            sample_inds = ops.furthest_point_sample(end_points["seed_xyz"],
-                                                    self.num_proposal)
+        else:
+            if self.sampling == "seed_fps":
+                sample_inds = ops.furthest_point_sample(
+                    end_points["seed_xyz"], self.num_proposal)
+            elif sample_inds is None:
+                if not isinstance(generator, torch.Generator):
+                    raise TypeError("random sampling draws from a"
+                                    " torch.Generator the caller passes")
+                sample_inds = torch.randint(
+                    0, end_points["seed_xyz"].shape[1],
+                    (xyz.shape[0], self.num_proposal), generator=generator,
+                    device=xyz.device, dtype=torch.int32)
             new_xyz, new_features, _ = self.vote_aggregation(
                 xyz, features, sample_inds)
         end_points["aggregated_vote_xyz"] = new_xyz

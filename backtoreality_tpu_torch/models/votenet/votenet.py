@@ -45,11 +45,12 @@ class VoteNet(nn.Module):
             num_proposal=num_proposal, sampling=sampling,
             query_mode=query_mode, dtype=head_dtype)
 
-    def forward(self, point_clouds):
-        """point_clouds (B, N, 3+C). Returns the end_points dict."""
-        return self.heads(self.backbone_net(point_clouds))
+    def forward(self, point_clouds, generator=None):
+        """point_clouds (B, N, 3+C). Returns the end_points dict.
+        `generator`: the draws of ``sampling="random"``."""
+        return self.heads(self.backbone_net(point_clouds), generator)
 
-    def heads(self, end_points):
+    def heads(self, end_points, generator=None):
         """Voting and proposals on the backbone's end_points."""
         xyz = end_points["fp2_xyz"]
         features = end_points["fp2_features"]
@@ -63,4 +64,4 @@ class VoteNet(nn.Module):
         end_points["vote_xyz"] = xyz
         end_points["vote_features"] = features
 
-        return self.pnet(xyz, features, end_points)
+        return self.pnet(xyz, features, end_points, generator)

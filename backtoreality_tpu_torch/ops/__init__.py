@@ -16,7 +16,7 @@ from backtoreality_tpu_torch.ops.ball_query import (ball_query,
 from backtoreality_tpu_torch.ops.chamfer import huber_loss, nn_distance
 from backtoreality_tpu_torch.ops.grouping import (
     gather_points, group_localize_stratified, group_points,
-    group_points_stratified)
+    group_points_stratified, sample_uniformly)
 from backtoreality_tpu_torch.ops.interpolate import (three_interpolate,
                                                       three_nn)
 from backtoreality_tpu_torch.ops.topk import top_k_indices
@@ -29,6 +29,7 @@ __all__ = [
     "group_points",
     "group_points_stratified",
     "group_localize_stratified",
+    "sample_uniformly",
     "three_nn",
     "three_interpolate",
     "nn_distance",

@@ -95,6 +95,48 @@ def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return flat.reshape(b, m, s, points.shape[-1])
 
 
+def _resample_uniformly(idx: torch.Tensor, u: torch.Tensor):
+    """:func:`sample_uniformly` with its uniform draws `u` (idx.shape,
+    float32 in [0, 1)) given: each slot-filled slot takes
+    ``idx[..., j]``, j = min(floor(u * cnt), cnt - 1)."""
+    s = idx.shape[-1]
+    slot = torch.arange(s, device=idx.device)
+    # distinct neighbours: slot 0 and every slot unlike the fill idx[..., 0]
+    valid = (slot == 0) | (idx != idx[..., :1])
+    cnt = torch.sum(valid, dim=-1, dtype=torch.int32)  # (B, M)
+    j = torch.minimum((u * cnt[..., None]).to(torch.int32),
+                      cnt[..., None] - 1)
+    resampled = torch.gather(idx, -1, j.long())
+    return torch.where(valid, idx, resampled), cnt
+
+
+def sample_uniformly(idx: torch.Tensor, generator: torch.Generator):
+    """Spread slot-fill duplicates uniformly over a region's found
+    neighbours (`QueryAndGroup(sample_uniformly=True)`,
+    `pointnet2_utils.py:336-345`; the counterpart of the JAX package's
+    ``ops.grouping.sample_uniformly``, unused by every train path).
+
+    The exact ball query fills unfound slots with a copy of the first
+    in-radius index: found (distinct) neighbours occupy the slot prefix
+    [0, cnt) and every later slot equals idx[..., 0]. Each fill slot takes
+    idx[..., j] instead, j uniform over 0..cnt-1 (the JAX package's
+    arithmetic, on uniform draws from `generator`).
+
+    Args:
+      idx: (B, M, S) int32 from `ball_query` (first-k, slot-fill).
+      generator: the ``torch.Generator`` of the draws, on idx's device;
+        the global generator is never read.
+
+    Returns:
+      (idx_resampled, unique_cnt): (B, M, S) int32 and (B, M) int32.
+    """
+    if not isinstance(generator, torch.Generator):
+        raise TypeError("sample_uniformly draws from a torch.Generator the"
+                        f" caller passes, got {type(generator).__name__}")
+    u = torch.rand(idx.shape, generator=generator, device=idx.device)
+    return _resample_uniformly(idx, u)
+
+
 def _group_points_stratified_torch(points, idx, hit):
     del hit  # idx is already slot-filled
     return group_points(points, idx)

@@ -2,8 +2,9 @@
 
 Counterpart of ``backtoreality_tpu/ops/interpolate.py`` (the reference
 CUDA ops `three_nn` / `three_interpolate`, `interpolate_gpu.cu:13-160`):
-`three_nn` returns euclidean (sqrt) distances, and `three_interpolate`
-is a weighted 3-point gather.
+`three_nn` returns euclidean (sqrt) distances, `three_interpolate` is a
+weighted 3-point gather, `interpolation_weights` the FP module's
+inverse-distance weights and `three_nn_interpolate` the three in one.
 """
 
 from __future__ import annotations
@@ -55,3 +56,22 @@ def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
     index = idx.reshape(b, n * 3, 1).long().expand(-1, -1, c)
     g = torch.gather(features, 1, index).reshape(b, n, 3, c)
     return torch.sum(g * weight[..., None], dim=2)
+
+
+def interpolation_weights(dist: torch.Tensor,
+                          eps: float = 1e-8) -> torch.Tensor:
+    """Inverse-distance weights as used by the FP module
+    (`pointnet2_modules.py:492-495`): 1 / (dist + eps), normalized over
+    the 3 neighbours."""
+    recip = 1.0 / (dist + eps)
+    return recip / torch.sum(recip, dim=-1, keepdim=True)
+
+
+def three_nn_interpolate(known_feats: torch.Tensor, known_xyz: torch.Tensor,
+                         unknown_xyz: torch.Tensor) -> torch.Tensor:
+    """One-shot 3-NN inverse-distance interpolation of `known_feats`
+    (B, m, C) at `known_xyz` (B, m, 3) onto `unknown_xyz` (B, n, 3) (GF's
+    `ThreeNNInterpolate`, `GroupFree3D/pointnet2/pointnet2_modules.py:
+    722-732`)."""
+    dist, idx = three_nn(unknown_xyz, known_xyz)
+    return three_interpolate(known_feats, idx, interpolation_weights(dist))

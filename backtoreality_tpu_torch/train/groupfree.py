@@ -80,7 +80,11 @@ from backtoreality_tpu_torch.train.observability import (ScalarHistory,
 
 __all__ = ["add_flags", "build_model", "loss_kwargs", "eval_prefixes",
            "make_train_step", "make_da_train_step", "recal_dropout",
-           "make_eval_step", "evaluate", "main"]
+           "make_recal_step", "recalibrate_bn", "make_eval_step",
+           "evaluate", "main"]
+
+make_recal_step = common.make_recal_step
+recalibrate_bn = common.recalibrate_bn
 
 RECIPES = ("fsb", "wsb", "br", "br_center_refine")
 MODELS = {"plain": GroupFreeDetector, "da": GroupFreeDetectorDA,

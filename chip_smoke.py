@@ -87,10 +87,28 @@ gated on two steps from one state giving bitwise-equal parameters.
    (``evidence/round4/ckpt/lad_f32.tar.gz``) read by the port's msgpack
    reader and scored by ``evaluate.main`` over 3 subsample seeds on the
    100-scan shapefix val; fails unless each IoU's mean mAP lies within
-   the JAX package's spread of its mean. Then its bfloat16 checkpoint
-   ``lad_t2`` through ``evaluate --bf16 --f32_tail 2`` after 20 batches
-   of BN recalibration on the shapefix train split, as the JAX package
-   scored it; fails unless each mean lies within twice the JAX spread.
+   the JAX package's spread of its mean. Then its bfloat16 checkpoints
+   ``lad_t2`` and ``lad_t1`` through ``evaluate --bf16 --f32_tail N``
+   (N = 2, 1) after 20 batches of BN recalibration on the shapefix train
+   split, as the JAX package scored them; fails unless each mean lies
+   within twice the JAX spread, the seeds printed beside the JAX
+   package's. (``lad_t4`` is not gated: its band is open, ROADMAP §C.10.)
+   ``[model surface]``: the VoteNet model surface that no recipe runs, at
+   B=8, N=40000 (``model_surface_phase``): ``BoxNet`` + ``get_loss_boxnet``
+   (2 steps and an eval forward, then its step timed and gated on
+   repeatability), ``VoteNetDA`` under ``get_loss_DA_separate`` (one step
+   of 8 + 8 scenes), ``VoteNetDAJitter2`` under CenterRefine's criterion
+   (2 steps; its head's ball query in every tile and its fused grouping
+   at C = 3 + 128 held against the plain versions), a
+   ``Pointnet2BackboneCam`` forward, and ``SAModuleMSG``,
+   ``SAModuleVotesRlt``, ``LFPModuleMSG`` and ``SAModuleVotes`` with avg
+   and rbf pooling and without xyz, each in train mode through the kernels
+   and through the plain grouping on the same neighbourhoods (output
+   bit-exact, gradients within 1e-5), with their new ball-query and
+   grouping shapes checked; the launches of each path against the counts
+   read off the code, and every shape each path launched FPS, the ball
+   query or the fused grouping at (forward and backward, logged by
+   ``ShapeLog``) held by a check against the plain version.
 7. GroupFree3D at its CLI defaults (B=8, N=50000, 6 decoder layers, 256
    queries, no height feature) on 16 synthetic scans of 52000 points:
    ``evaluate --model groupfree`` with random seeded weights (launches 4
@@ -110,8 +128,9 @@ gated on two steps from one state giving bitwise-equal parameters.
    CenterRefine (the partial-restore counts checked) and scored by
    ``evaluate --model groupfree``; both DA steps on a fixed pair of
    batches (wall, phases, kernels' device time, busy share, peak memory,
-   the switch's cost, bitwise repeatability gated). Then the learning
-   check: ``gf_fsb`` on the shapefix train split at the JAX package's
+   the switch's cost, bitwise repeatability gated). The learning check
+   (after item 8's exact-mode phases, beside the parity pairs):
+   ``gf_fsb`` on the shapefix train split at the JAX package's
    shapefix configuration (N=20000, height, subset FPS over 8192) for 50
    epochs of 5 steps, each epoch's loss beside the JAX run's
    (``evidence/round5/gflad/f32_metrics.jsonl``); fails unless the mean
@@ -130,7 +149,9 @@ gated on two steps from one state giving bitwise-equal parameters.
    (VoteNet, B=8, N=40000) and GF's (2 decoder layers, feed-forward 128,
    height, N=50000): FPS 5 and 4 launches a forward, K3 and K4 none; a
    batch timed. Then the round-5 system-parity pairs (WSB, BR,
-   CenterRefine, GF) on the ``parity`` and ``br`` fixtures of the port's
+   CenterRefine, GF), in a process of their own (``--parity_pairs``)
+   beside the learning check and ``[datagen -> br]``, on the ``parity``
+   and ``br`` fixtures of the port's
    ``tools.parity_fixture``, each recipe's ``main`` with the JAX leg's
    flags (held to its ``ours_config.json``), WSB, BR and GF from the
    imported inits, CenterRefine from scratch, for 51, 30, 30 and 51
@@ -142,12 +163,12 @@ gated on two steps from one state giving bitwise-equal parameters.
    16 ScanNet-format scans (60000 floor and wall vertices and 5 or 6
    labelled md40 objects each, 4 of them holding a keyboard, cup or
    bottle) and 2 Matterport-format houses of 4 regions (4-6 turned
-   objects each) written before the learning check, their real domains
+   objects each) written after the exact-mode phases, their real domains
    exported (``export-real``; ``organize-matterport``,
    ``export-real-matterport``) and the two syntheses (``synthesize
    --procedural --num_aug 2``, ``synthesize-matterport --procedural``)
    started as processes of the port's datagen CLI, run beside the
-   learning check, the exact-mode phases and the parity pairs; then
+   learning check and the parity pairs; then
    their walls and the collision test's share printed, at least 16 and 8
    virtual scenes required, and ``votenet_br.main`` at B=8, N=40000,
    ``--fps_candidates 8192`` on each (ScanNet one epoch of 2 steps,
@@ -177,8 +198,9 @@ gated on two steps from one state giving bitwise-equal parameters.
    wall and peak memory a rank.
    Then the JAX package's two-process contract (tests/test_multiprocess.py)
    for ``votenet_fsb`` (2 epochs, then ``--resume`` for a third),
-   ``votenet_br`` and ``gf_fsb`` (1 epoch), two ``--multihost`` processes
-   on the card, batch 4 each, on the 16-scan fixtures: equal epoch losses
+   ``votenet_br`` and ``gf_fsb`` (1 epoch; these two beside the first),
+   two ``--multihost`` processes on the card, batch 4 each, on the 16-scan
+   fixtures: equal epoch losses
    on both ranks, rank 0's checkpoints only, ``log_train.txt.rank1``, an
    evaluation in both logs. ``[preemption]``: ``votenet_fsb`` with
    ``--guard_every_steps 1`` in a process of its own, sent SIGTERM in its
@@ -189,9 +211,11 @@ gated on two steps from one state giving bitwise-equal parameters.
    10-15 naming the FPS, ball-query and grouping kernels.
 10. Print each phase's seconds, the card's name and power limit, one JSON
    line with every kernel's numbers (times summed over the VoteNet FSB
-   training path's shapes; launches by path, the GF, exact and
-   data-parallel paths included), and as the last line ``{"ok": true,
-   "device": {"platform": "gpu", ...}}``.
+   training path's shapes; launches by path, the GF, exact,
+   data-parallel and model-surface paths included); then fail if a
+   bfloat16 checkpoint gate of phase 6 failed (its verdict waits for the
+   later phases), else print as the last line ``{"ok": true, "device":
+   {"platform": "gpu", ...}}``.
 
 It exits nonzero without a CUDA device, and imports nothing of JAX.
 ``--kernels_only`` stops after phase 2 and prints its records as one JSON
@@ -247,6 +271,13 @@ BF16_TRAINING = ("training_bf16", "gf_fsb_bf16")
 DP_PATHS = ("dp_votenet_fsb", "dp_votenet_br", "dp_gf_fsb")
 DP_VOTENET = DP_PATHS[:2]
 N_GF = 50000
+# [model surface]: the VoteNet model surface no recipe runs (BoxNet, the
+# separate-DA criterion, VoteNetDAJitter2, the SA-only backbone, the SA/FP
+# variants); each path's records are the ones of the shapes it launched at
+# (`ShapeLog`, `tag_paths`)
+SURFACE_TRAINING = ("boxnet", "da_separate", "da_jitter2",
+                    "surface_variants")
+SURFACE_SERVING = ("cam",)
 # launches per forward (FPS, ball query, the fused grouping) and grouping
 # backwards per train step, by model graph. A DA step runs two forwards
 # and one backward: SA2-SA4 and vote clustering in each, and in
@@ -254,31 +285,43 @@ N_GF = 50000
 # the source's only (the target's jitter prediction refines labels that
 # are detached). GroupFree3D samples its queries by KPS (a top-k, no
 # kernel): SA1-SA4 a forward, SA2-SA4 a backward; its CenterRefine graph
-# adds the jitter head's layer, in evaluation too (it takes the GT centres)
+# adds the jitter head's layer, in evaluation too (it takes the GT centres).
+# BoxNet: VoteNet's five layers, its vote clustering over the seeds, whose
+# FP2 features take a gradient (4 backwards). VoteNetDAJitter2's head
+# groups the aggregated votes with their features detached but their
+# positions not: one more layer a forward, and its backward (the
+# positions' gradient) in the source's only, as CenterRefine's head
 PER_FORWARD = {"plain": (5, 5, 5), "da": (5, 5, 5), "da_jitter": (5, 6, 6),
                "gf": (4, 4, 4), "gf_da": (4, 4, 4),
-               "gf_da_jitter": (4, 5, 5)}
+               "gf_da_jitter": (4, 5, 5), "boxnet": (5, 5, 5),
+               "da_jitter2": (5, 6, 6), "cam": (4, 4, 4)}
 BACKWARDS_PER_STEP = {"plain": 4, "da": 8, "da_jitter": 9, "gf": 3,
-                      "gf_da": 6, "gf_da_jitter": 7}
+                      "gf_da": 6, "gf_da_jitter": 7, "boxnet": 4,
+                      "da_jitter2": 9, "cam": 0}
 # the checkpoint gate: the JAX package's scores of lad_f32 on the 100-scan
 # shapefix val (subset FPS over 8192 candidates, 3 subsample seeds;
 # evidence/round5/r5_ladeval_f32.out), mean and its own spread per IoU
 GATE_CHECKPOINT = "evidence/round4/ckpt/lad_f32.tar.gz"
 GATE = {0.25: (0.8210, 0.0064, (0.8234, 0.8138, 0.8258)),
         0.5: (0.6202, 0.0226, (0.6439, 0.5990, 0.6178))}
-# the second checkpoint gate: the JAX package's bfloat16 checkpoint lad_t2
-# (--bf16 --f32_tail 2) scored by its evaluate after 20 batches of BN
-# recalibration on the shapefix train split
-# (evidence/round5/queue/s2_ladder_bigval.sh,
-# evidence/round5/r5_ladeval_t2.out, RESULTS.md:1036-1041): mean, spread
-# and seeds per IoU. The card's mean must lie within GATE_T2_BAND spreads:
-# the JAX spread is the subsample seeds' only, and bfloat16 products
-# accumulate in another order on the TPU's matrix units than on Hopper's
-# tensor cores
-GATE_T2_CHECKPOINT = "evidence/round4/ckpt/lad_t2.tar.gz"
-GATE_T2 = {0.25: (0.7571, 0.0056, (0.7636, 0.7543, 0.7535)),
-           0.5: (0.4982, 0.0186, (0.4981, 0.5169, 0.4797))}
-GATE_T2_BAND = 2
+# the bfloat16 checkpoint gates: the JAX package's checkpoints trained with
+# --bf16 --f32_tail N (evidence/round4/lad_t{1,2,4}_config.json) scored by
+# its evaluate with that flag after 20 batches of BN recalibration on the
+# shapefix train split (evidence/round5/queue/s2_ladder_bigval.sh; the
+# scores in evidence/round5/r5_ladeval_t{1,2,4}.out, lines 8 and 55, and
+# RESULTS.md:1036-1041): checkpoint, N, and per IoU mean, spread and
+# seeds. The card's mean must lie within GATE_BF16_BAND spreads: the JAX
+# spread is the subsample seeds' only, and bfloat16 products accumulate in
+# another order on the TPU's matrix units than on Hopper's tensor cores
+GATES_BF16 = {
+    "lad_t2": ("evidence/round4/ckpt/lad_t2.tar.gz", 2,
+               {0.25: (0.7571, 0.0056, (0.7636, 0.7543, 0.7535)),
+                0.5: (0.4982, 0.0186, (0.4981, 0.5169, 0.4797))}),
+    "lad_t1": ("evidence/round4/ckpt/lad_t1.tar.gz", 1,
+               {0.25: (0.7265, 0.0044, (0.7311, 0.7259, 0.7224)),
+                0.5: (0.4541, 0.0133, (0.4601, 0.4633, 0.4389))}),
+}
+GATE_BF16_BAND = 2
 RECAL_BATCHES = 20  # --bn_recal_batches' default with --bf16
 # the GroupFree3D learning check: the JAX package's run of GF FSB on the
 # shapefix train split (evidence/round5/gflad/f32_config.json), its
@@ -386,9 +429,9 @@ def check_fps(label, xyz, npoint, fps, reps, candidates=None,
           f" {bnd:.4f} ms ({by}), bit-exact; cluster {layout.cluster},"
           f" {layout.threads} threads, {layout.points} points a thread"
           + held)
-    rec = dict(shape=label, ms=ms, plain_ms=plain, bound_ms=bnd,
-               bound_by=by, max_abs_err=0, us_per_sample=per_sample,
-               layout=tuple(layout))
+    rec = dict(shape=label, dims=fps_dims(xyz, npoint, candidates), ms=ms,
+               plain_ms=plain, bound_ms=bnd, bound_by=by, max_abs_err=0,
+               us_per_sample=per_sample, layout=tuple(layout))
     if others:
         rec["other_layouts"] = []
         for other in fps_layouts(fps, b, n):
@@ -506,6 +549,7 @@ def check_bq(label, xyz, ctr, radius, nsample, bq, reps):
     pi, ph = bq._ball_query_stratified_torch(xyz, ctr, radius, nsample)
     b, n, _ = xyz.shape
     m = ctr.shape[1]
+    dims = bq_dims(xyz, ctr, radius, nsample)
     bucket = bq._bucket_size(n, nsample)
     # work this data needs: each slot scans up to its bucket's first hit
     base = torch.arange(nsample, device=xyz.device) * bucket
@@ -551,7 +595,7 @@ def check_bq(label, xyz, ctr, radius, nsample, bq, reps):
             f" {tests} tests needed")
     if not reps:
         print(head)
-        return dict(shape=label, max_abs_err=max_gap)
+        return dict(shape=label, dims=dims, max_abs_err=max_gap)
     mine = next(r for r in per_tile if r["tile"] == tuple(chosen))
     plain = cuda_ms(lambda: bq._ball_query_stratified_torch(
         xyz, ctr, radius, nsample), 3, ahead=True)
@@ -562,8 +606,9 @@ def check_bq(label, xyz, ctr, radius, nsample, bq, reps):
     for r in per_tile:
         print(f"      [{r['name']}] {r['ms']:.4f} ms, {r['executed']} tests"
               f" executed ({r['executed'] / max(tests, 1):.2f} of needed)")
-    return dict(shape=label, ms=mine["ms"], plain_ms=plain, bound_ms=bnd,
-                bound_by=by, max_abs_err=max_gap, boundary_points=boundary,
+    return dict(shape=label, dims=dims, ms=mine["ms"], plain_ms=plain,
+                bound_ms=bnd, bound_by=by, max_abs_err=max_gap,
+                boundary_points=boundary,
                 tests_needed=tests, tile=mine["name"], tiles=per_tile)
 
 
@@ -735,10 +780,11 @@ def check_group(label, points, ctr, radius, nsample, bq, grouping, reps):
           f" mean {per_point.float().mean().item():.2f} max"
           f" {per_point.max().item()}; backward passes "
           + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
-    fwd = dict(shape=label, ms=fwd_ms, plain_ms=fwd_plain,
+    dims = group_dims(idx, n, c)
+    fwd = dict(shape=label, dims=dims, ms=fwd_ms, plain_ms=fwd_plain,
                library_ms=fwd_lib, bound_ms=fwd_bound, bound_by=fwd_by,
                max_abs_err=0)
-    bwd = dict(shape=label, ms=bwd_ms, plain_ms=bwd_plain,
+    bwd = dict(shape=label, dims=dims, ms=bwd_ms, plain_ms=bwd_plain,
                library_ms=bwd_lib, bound_ms=bwd_bound, bound_by=bwd_by,
                max_abs_err=err * scale, rel_err=err,
                longest_list=per_point.max().item(),
@@ -869,8 +915,10 @@ def check_localize(label, xyz, feats, ctr, radius, nsample, bq, grouping,
     out_bytes = b * m * nsample * (3 + c) * 4
     fwd_bound, fwd_by = bound_ms(2 * 3 * b * m * nsample,
                                  in_bytes + out_bytes)
-    fwd = dict(shape=label, ms=fwd_ms, plain_ms=fwd_plain, library_ms=None,
-               bound_ms=fwd_bound, bound_by=fwd_by, max_abs_err=0)
+    dims = group_dims(idx, n, c)
+    fwd = dict(shape=label, dims=dims, ms=fwd_ms, plain_ms=fwd_plain,
+               library_ms=None, bound_ms=fwd_bound, bound_by=fwd_by,
+               max_abs_err=0)
     line = (f"  localize {label:9s} N={n} C={c} M={m} S={nsample}: forward"
             f" kernel {fwd_ms:.4f} ms, plain (cat, gather, sub, div, cat)"
             f" {fwd_plain:.4f}, bound {fwd_bound:.4f} ({fwd_by}),"
@@ -901,7 +949,7 @@ def check_localize(label, xyz, feats, ctr, radius, nsample, bq, grouping,
         listed = lengths[lengths > 0].float()
         longest = lengths.max().item()
         no_hit = (~hit.any(-1)).sum().item()
-        bwd = dict(shape=label, ms=bwd_ms, plain_ms=bwd_plain,
+        bwd = dict(shape=label, dims=dims, ms=bwd_ms, plain_ms=bwd_plain,
                    library_ms=None, bound_ms=bwd_bound, bound_by=bwd_by,
                    max_abs_err=worst_abs, rel_err=max(errs.values()),
                    gradients=wanted, longest_list=longest,
@@ -915,6 +963,91 @@ def check_localize(label, xyz, feats, ctr, radius, nsample, bq, grouping,
                  f" {no_hit} of {b * m} centres hit no point")
     print(line)
     return fwd, bwd
+
+
+def fps_dims(xyz, npoint, candidates=None):
+    """FPS's launch shape, as its records and `ShapeLog` carry it: (B, N,
+    npoint, candidates)."""
+    return (*xyz.shape[:2], npoint, candidates)
+
+
+def bq_dims(xyz, new_xyz, radius, nsample):
+    """The ball query's: (B, N, M, S, radius)."""
+    return (*xyz.shape[:2], new_xyz.shape[1], nsample, float(radius))
+
+
+def group_dims(idx, n, width):
+    """The grouping's, unfused or fused: (B, N, M, S, C), C the points'
+    width (unfused) or the features' (fused)."""
+    return (idx.shape[0], n, *idx.shape[1:], width)
+
+
+class ShapeLog:
+    """The shapes the kernels launch at in a block (``with ShapeLog() as
+    log``), as the nn modules reach them (``backtoreality_tpu_torch.ops.
+    <name>``): `shapes` holds (kind, dims) of each FPS, ball query and
+    fused grouping call, the grouping also as the unfused kernel it
+    counts as (C = 3 + the features' width), and each as a backward
+    ("localize_backward", "group_backward") where an input takes a
+    gradient."""
+
+    def __enter__(self):
+        import torch
+
+        from backtoreality_tpu_torch import ops
+
+        self.shapes = set()
+        fps, query, local = (ops.furthest_point_sample,
+                             ops.ball_query_stratified,
+                             ops.group_localize_stratified)
+
+        def fps_logged(xyz, npoint, candidates=None):
+            self.shapes.add(("fps", fps_dims(xyz, npoint, candidates)))
+            return fps(xyz, npoint, candidates)
+
+        def query_logged(xyz, new_xyz, radius, nsample, return_hit=False):
+            self.shapes.add(("ball_query",
+                             bq_dims(xyz, new_xyz, radius, nsample)))
+            return query(xyz, new_xyz, radius, nsample, return_hit)
+
+        def local_logged(xyz, features, new_xyz, idx, hit, radius):
+            c = 0 if features is None else features.shape[-1]
+            n = xyz.shape[1]
+            kinds = [("localize", group_dims(idx, n, c)),
+                     ("group", group_dims(idx, n, 3 + c))]
+            if torch.is_grad_enabled() and any(
+                    t is not None and t.requires_grad
+                    for t in (xyz, features, new_xyz)):
+                kinds += [(k + "_backward", d) for k, d in kinds]
+            self.shapes.update(kinds)
+            return local(xyz, features, new_xyz, idx, hit, radius)
+
+        self.saved = patch_ops(furthest_point_sample=fps_logged,
+                               ball_query_stratified=query_logged,
+                               group_localize_stratified=local_logged)
+        return self
+
+    def __exit__(self, *exc):
+        restore_ops(self.saved)
+
+
+def tag_paths(shapes_by_path, records):
+    """Each path onto the records (`records` by kind, as `ShapeLog` names
+    them) of the shapes it launched at. Fails where a path launched FPS,
+    the ball query or the fused grouping, forward or backward, at a shape
+    that no record holds against its plain version; the unfused
+    grouping's records (the same kernel at the points' width) take the
+    paths whose shapes they hold."""
+    strict = ("fps", "ball_query", "localize", "localize_backward")
+    for path, shapes in shapes_by_path.items():
+        for kind, dims in sorted(shapes, key=str):
+            held = [r for r in records[kind]
+                    if tuple(r.get("dims", ())) == dims]
+            require(held or kind not in strict, f"{path}: {kind} launched"
+                    f" at {dims}, a shape with no check against the plain"
+                    " version")
+            for r in held:
+                r["paths"] = tuple(r.get("paths", ())) + (path,)
 
 
 def summarize(name, kernel, source, records, launches, path):
@@ -1330,29 +1463,20 @@ def da_step_phase(scans, virtual, cfg, header):
     switch costs, and bitwise repeatability (gated)."""
     import torch
 
-    from backtoreality_tpu_torch.data.dataset import DetectionDataset
-    from backtoreality_tpu_torch.data.loader import DetectionDataLoader
     from backtoreality_tpu_torch.losses import votenet as vote_losses
     from backtoreality_tpu_torch.train import common, votenet
 
-    def first_batch(root, split, center_jitter):
-        ds = DetectionDataset(cfg, root, split=split, num_points=N,
-                              use_height=True, augment=True,
-                              center_jitter=center_jitter)
-        return votenet.to_device(next(iter(DetectionDataLoader(
-            ds, B, shuffle=False, prefetch=0))), "cuda")
-
     # as `_train_loop_da`: the target is jittered, the source only for
     # CenterRefine
-    target = first_batch(scans, "all", 0.1)
+    target = first_batch(cfg, scans, "all", 0.1)
     flags = votenet.add_common_flags(argparse.ArgumentParser()).parse_args(
         ["--fps_candidates", "8192"])
     epoch = 30
     out = {}
     for recipe, kind in (("br", "da"), ("br_center_refine", "da_jitter")):
         jitter = kind == "da_jitter"
-        batches = [first_batch(virtual, "train_aug", 0.1 if jitter else 0.0),
-                   target]
+        batches = [first_batch(cfg, virtual, "train_aug",
+                               0.1 if jitter else 0.0), target]
         torch.manual_seed(0)
         model = votenet.build_model(flags, cfg, kind).cuda()
         opt = common.make_optimizer(model.parameters(), "adam", lr0=1e-3)
@@ -1635,21 +1759,24 @@ def gate_check(label, results, table, band):
         print(f"  mAP@{t}: card {got['mAP']:.4f} (seeds "
               + " / ".join(f"{v:.4f}" for v in card)
               + f"), JAX package {mean:.4f} +/- {spread} (seeds"
-              f" {jax_seeds}): {'within' if within else 'OUTSIDE'}"
-              f" {band} x the spread ({allowed:.4f})")
+              f" {jax_seeds}): gap {abs(got['mAP'] - mean):.5f},"
+              f" {'within' if within else 'OUTSIDE'} {band} x the spread"
+              f" ({allowed:.4f})")
         if not within:
-            failed.append(f"mAP@{t} {got['mAP']:.4f} not within"
+            failed.append(f"mAP@{t} {got['mAP']:.5f} not within"
                           f" {allowed:.4f} of {mean}")
     require(not failed, f"{label}: " + "; ".join(failed))
 
 
-def gate_t2_phase(val, tmp, counters):
-    """Score the JAX package's bfloat16 checkpoint lad_t2 on the card as
-    the JAX package did (``s2_ladder_bigval.sh``): ``evaluate.main --bf16
-    --f32_tail 2`` after 20 batches of BN recalibration on the shapefix
-    train split (the port's ``write_shapefix_train``), over 3 subsample
-    seeds of the 100-scan val of `gate_phase`. Fails unless each IoU's
-    mean lies within GATE_T2_BAND spreads of the JAX package's."""
+def gate_bf16_phase(val, tmp, counters, lap):
+    """Score the JAX package's bfloat16 checkpoints on the card as the JAX
+    package did (``s2_ladder_bigval.sh``): ``evaluate.main --bf16
+    --f32_tail N`` after 20 batches of BN recalibration on the shapefix
+    train split (the port's ``write_shapefix_train``, written once), over
+    3 subsample seeds of the 100-scan val of `gate_phase`, for lad_t2 (N
+    2) and lad_t1 (1). Fails unless each IoU's mean lies within
+    GATE_BF16_BAND spreads of the JAX package's; `lap` closes a phase a
+    checkpoint."""
     from backtoreality_tpu_torch.datagen.shapefix import write_shapefix_train
     from backtoreality_tpu_torch.train import evaluate
 
@@ -1658,22 +1785,425 @@ def gate_t2_phase(val, tmp, counters):
     train, _ = write_shapefix_train(root)
     print(f"[checkpoint gate lad_t2] shapefix train {len(train)} scans"
           f" written in {time.perf_counter() - t0:.1f} s")
+    for name, (checkpoint, tail, table) in GATES_BF16.items():
+        label = f"checkpoint gate {name}"
+        reset(counters)
+        t0 = time.perf_counter()
+        results = evaluate.main([
+            "--model", "votenet", "--checkpoint_path", str(ROOT / checkpoint),
+            "--bf16", "--f32_tail", str(tail), "--train_data_root",
+            str(root / "train"), "--recal_split", "all", "--data_root",
+            str(val), "--split", "all", "--num_point", "20000",
+            "--num_target", "256", "--batch_size", "8", "--eval_seeds", "3",
+            "--fps_candidates", "8192", "--device", "cuda"])
+        secs = time.perf_counter() - t0
+        check_counts(label, read_counts(counters), "plain",
+                     RECAL_BATCHES + 3 * math.ceil(100 / 8), 0)
+        print(f"[{label}] --bf16 --f32_tail {tail}, {RECAL_BATCHES}"
+              f" recalibration batches, 3 seeds over 100 scans, in"
+              f" {secs:.1f} s")
+        gate_check(label, results, table, GATE_BF16_BAND)
+        lap(label)
+
+
+def first_batch(cfg, root, split, center_jitter=0.0, augment=True):
+    """The first B scans of `root` at N points (height feature) as tensors
+    on the card."""
+    from backtoreality_tpu_torch.data.dataset import DetectionDataset
+    from backtoreality_tpu_torch.data.loader import DetectionDataLoader
+    from backtoreality_tpu_torch.train.common import to_device
+
+    ds = DetectionDataset(cfg, root, split=split, num_points=N,
+                          use_height=True, augment=augment,
+                          center_jitter=center_jitter)
+    return to_device(next(iter(DetectionDataLoader(
+        ds, B, shuffle=False, prefetch=0))), "cuda")
+
+
+def patch_ops(**fns):
+    """The op library's entries named in `fns` replaced, as the nn modules
+    reach them (``backtoreality_tpu_torch.ops.<name>``); returns what
+    they were, for `restore_ops`."""
+    from backtoreality_tpu_torch import ops
+
+    saved = {k: getattr(ops, k) for k in fns}
+    for k, fn in fns.items():
+        setattr(ops, k, fn)
+    return saved
+
+
+def restore_ops(saved):
+    from backtoreality_tpu_torch import ops
+
+    for k, fn in saved.items():
+        setattr(ops, k, fn)
+
+
+class PlainOps:
+    """The op library's kernel entries, as the nn modules reach them
+    (``backtoreality_tpu_torch.ops.<name>``), replaced for one run of a
+    module: `record` keeps the ball query's (idx, hit) of each call (the
+    kernel runs); `replay` takes the plain grouping with those (idx, hit)
+    in call order and refuses FPS, whose indices the caller passes. So a
+    module runs once through its kernels and once through the plain
+    grouping on the same neighbourhoods; the ball query itself is held
+    against its plain version by `check_bq` at each of its shapes."""
+
+    def __init__(self):
+        self.calls = []
+
+    def record(self):
+        from backtoreality_tpu_torch import ops
+
+        real = ops.ball_query_stratified
+
+        def query(*args, **kw):
+            out = real(*args, **kw)
+            self.calls.append(out)
+            return out
+
+        return patch_ops(ball_query_stratified=query)
+
+    def replay(self):
+        from backtoreality_tpu_torch.ops import grouping
+
+        calls = iter(self.calls)
+
+        def fps(*args, **kw):
+            raise AssertionError("plain run: FPS indices must be given")
+
+        return patch_ops(
+            ball_query_stratified=lambda *args, **kw: next(calls),
+            group_localize_stratified=(
+                grouping._group_localize_stratified_torch),
+            furthest_point_sample=fps)
+
+
+
+def compare_module(label, module, inputs, grads_of, counters):
+    """One module's train-mode forward and backward through the kernels,
+    then through the plain grouping on the same neighbourhoods (`PlainOps`)
+    from the same state: the output bitwise equal, and the gradients of
+    sum(out * g), g fixed, with respect to the inputs named in `grads_of`
+    and every parameter each within GROUP_GRAD_RTOL of its largest plain
+    entry. `inputs` are the forward's arguments in order (tensors or
+    None); a module that samples returns its FPS indices, which the plain
+    run is given. Returns the kernel run's launches; the plain run must
+    launch nothing."""
+    import copy
+
+    import torch
+
+    state = copy.deepcopy(module.state_dict())
+    module.train()
+
+    def run(args):
+        leaves = [None if t is None else t.detach().clone().requires_grad_(
+            i in grads_of) for i, t in enumerate(args)]
+        out = module(*leaves)
+        feats = out if torch.is_tensor(out) else out[1]
+        gen = torch.Generator(feats.device).manual_seed(7)
+        g = torch.randn(feats.shape, device=feats.device, generator=gen)
+        wrt = [leaves[i] for i in grads_of] + list(module.parameters())
+        grads = torch.autograd.grad((feats * g).sum(), wrt,
+                                    allow_unused=True)
+        return out, feats.detach(), grads
+
+    plain_ops = PlainOps()
     reset(counters)
-    t0 = time.perf_counter()
-    results = evaluate.main([
-        "--model", "votenet", "--checkpoint_path",
-        str(ROOT / GATE_T2_CHECKPOINT), "--bf16", "--f32_tail", "2",
-        "--train_data_root", str(root / "train"), "--recal_split", "all",
-        "--data_root", str(val), "--split", "all", "--num_point", "20000",
-        "--num_target", "256", "--batch_size", "8", "--eval_seeds", "3",
-        "--fps_candidates", "8192", "--device", "cuda"])
-    secs = time.perf_counter() - t0
-    check_counts("checkpoint gate lad_t2", read_counts(counters), "plain",
-                 RECAL_BATCHES + 3 * math.ceil(100 / 8), 0)
-    print(f"[checkpoint gate lad_t2] --bf16 --f32_tail 2, {RECAL_BATCHES}"
-          f" recalibration batches, 3 seeds over 100 scans, in {secs:.1f}"
-          " s")
-    gate_check("checkpoint gate lad_t2", results, GATE_T2, GATE_T2_BAND)
+    saved = plain_ops.record()
+    try:
+        out, got, g_kernel = run(inputs)
+    finally:
+        restore_ops(saved)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    # the plain run: the same state, the kernel run's FPS indices
+    module.load_state_dict(state)
+    plain_inputs = list(inputs)
+    if not torch.is_tensor(out) and out[2] is not None:
+        plain_inputs.append(out[2])
+    reset(counters)
+    saved = plain_ops.replay()
+    try:
+        _, want, g_plain = run(plain_inputs)
+    finally:
+        restore_ops(saved)
+    torch.cuda.synchronize()
+    stray = {k: v for k, v in read_counts(counters).items() if v}
+    require(not stray, f"surface {label}: the plain run launched {stray}")
+    require(torch.equal(got, want),
+            f"surface {label}: output kernel != plain at"
+            f" {(got != want).sum().item()} of {got.numel()} values")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g_kernel, g_plain)):
+        if a is None or b is None:
+            require(a is None and b is None,
+                    f"surface {label}: gradient {i} missing on one side")
+            continue
+        err = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, err)
+        require(err <= GROUP_GRAD_RTOL,
+                f"surface {label}: gradient {i} off by {err:.2e} of its"
+                f" largest entry, above {GROUP_GRAD_RTOL}")
+    module.load_state_dict(state)
+    print(f"  surface {label}: output bit-exact, {len(g_kernel)} gradients"
+          f" (inputs {list(grads_of)} and parameters) within"
+          f" {worst:.1e} of their largest; {len(plain_ops.calls)} ball"
+          f" queries; launches {launches}")
+    return launches
+
+
+def add_counts(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def model_surface_phase(scans, virtual, cfg, counters, header, fps, bq,
+                        grouping):
+    """[model surface]: the VoteNet model surface that no recipe runs, on
+    the card through K1/K3/K4 at full width (B=8, N=40000, height).
+
+    * ``boxnet``: `BoxNet` + `get_loss_boxnet` at the FSB bench
+      configuration (8192 FPS candidates, 256 proposals, Adam 1e-3, BN
+      momentum 0.5), 2 steps and one eval forward (5/5/5 launches a
+      forward, 4 grouping backwards a step: vote clustering groups the
+      seeds' FP2 features, which take a gradient); then the step timed as
+      the other steps (wall, phases, kernels, busy, peak; repeatability
+      gated).
+    * ``da_separate``: BR's model on 8 + 8 scenes under
+      `get_loss_DA_separate`, one step (10/10/10, 8 backwards).
+    * ``da_jitter2``: `VoteNetDAJitter2` under CenterRefine's criterion
+      (`get_loss_DA_jitter`, epoch 30), two steps (5/6/6 a forward, 9
+      backwards a step: the head groups the aggregated votes, their
+      features detached but their positions not, so the source's head
+      takes a backward for the positions' gradient, the target's none).
+      Its head's kernels at their new shape: K3 (N=256 votes, 64 GT
+      centres, 16 slots, r=0.8) in every tile, the fused K4 at C = 3 +
+      128, scale 1.0, forward and backward (the positions' gradient).
+    * ``cam``: a `Pointnet2BackboneCam` forward (4/4/4), timed.
+    * ``surface_variants``: at VoteNet's SA widths on one batch,
+      `SAModuleMSG` at SA1 (2048 centres, radii 0.1/0.2/0.4, 16/32/64
+      slots, [64, 64, 128] each), `SAModuleVotesRlt` at SA2 (1024 of SA1's
+      2048, r=0.4, 32 slots, 3 + 2 x 128 wide), `LFPModuleMSG` onto SA3's
+      512 points from SA4's 256 (C=256, radii 0.8/1.2, 16 slots each,
+      [256, 256] a scale, post-MLP [256, 256]) and `SAModuleVotes` at SA2
+      with avg pooling, rbf pooling and ``use_xyz=False``, each in train
+      mode through the kernels and again through the plain grouping
+      (`compare_module`); K3 in every tile and the fused K4 forward and
+      backward at each new (N, M, S, C) against their plain versions.
+
+    Each path's counted run is also logged by shape (`ShapeLog`). Returns
+    (launches by path, shapes by path, K3 records, fused K4 forward
+    records, fused K4 backward records, the BoxNet step's numbers)."""
+    import torch
+
+    from backtoreality_tpu_torch import nn as tnn
+    from backtoreality_tpu_torch.losses import votenet as vote_losses
+    from backtoreality_tpu_torch.models.votenet import (
+        BoxNet, Pointnet2BackboneCam, VoteNetDAJitter2)
+    from backtoreality_tpu_torch.train import common, evaluate, votenet
+
+    heads = dict(num_class=cfg.num_class,
+                 num_heading_bin=cfg.num_heading_bin,
+                 num_size_cluster=cfg.num_size_cluster,
+                 mean_size_arr=cfg.mean_size_arr, input_feature_dim=1,
+                 num_proposal=256, fps_candidates=8192)
+    paths, shapes, bq_recs, fwd_recs, bwd_recs = {}, {}, [], [], []
+    batch = first_batch(cfg, scans, "all")
+    pc = batch["point_clouds"]
+
+    # boxnet: 2 steps and an eval forward, counted; then the step timed
+    torch.manual_seed(0)
+    model = BoxNet(**heads).cuda()
+    opt = common.make_optimizer(model.parameters(), "adam", lr0=1e-3)
+    step = votenet.make_train_step(model, opt, vote_losses.get_loss_boxnet,
+                                   cfg)
+    reset(counters)
+    with ShapeLog() as log:
+        losses = [step(batch, 0.5)["loss"].item() for _ in range(2)]
+        model.eval()
+        with torch.no_grad():
+            out = model(pc)
+    paths["boxnet"], shapes["boxnet"] = read_counts(counters), log.shapes
+    require(all(map(math.isfinite, losses)) and out["center"].shape ==
+            (B, 256, 3) and bool(torch.isfinite(out["center"]).all())
+            and "vote_xyz" not in out,
+            f"boxnet: losses {losses}, or the eval forward's centres")
+    print(f"[model surface: boxnet] BoxNet + get_loss_boxnet, 2 steps and"
+          f" an eval forward: losses {losses}; launches {paths['boxnet']}")
+    check_counts("boxnet", paths["boxnet"], "boxnet", 3, 2)
+    for _ in range(2):
+        step(batch, 0.5)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(batch, 0.5), reps=10, warmup=0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    loss = step(batch, 0.5)["loss"].item()
+    require(math.isfinite(loss), "boxnet step loss not finite")
+    print(f"[train step] BoxNet B={B} N={N} fps_candidates=8192, Adam lr"
+          f" 1e-3, BN momentum 0.5: {step_ms:.3f} ms per step (median of"
+          f" 10 after 2 warm-ups), {B / step_ms * 1e3:.1f} scenes/s, peak"
+          f" {peak_gb:.2f} GiB, loss {loss:.4f}  | {header}")
+    phases = step_phases(
+        model, opt, lambda eps: vote_losses.get_loss_boxnet(eps[0], cfg)[0],
+        [batch], 0.5)
+    print("  phases (median of 5, CUDA events): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in phases.items()))
+    dev_ms = profile_steps(lambda: step(batch, 0.5), "BoxNet steps")
+    print(f"  device busy {dev_ms / step_ms:.3f} of the unprofiled step"
+          f" ({dev_ms:.3f} of {step_ms:.3f} ms)")
+    check_determinism("BoxNet", model, opt, lambda: step(batch, 0.5))
+    boxnet_step = dict(ms=step_ms, device_ms=dev_ms, peak_gb=peak_gb,
+                       phases=phases)
+    del model, opt, step, out
+
+    # da_separate and da_jitter2 on a virtual source and the real target
+    flags = votenet.add_common_flags(argparse.ArgumentParser()).parse_args(
+        ["--fps_candidates", "8192"])
+    target = first_batch(cfg, scans, "all", center_jitter=0.1)
+    source = first_batch(cfg, virtual, "train_aug")
+    torch.manual_seed(0)
+    model = evaluate.build_model(flags, cfg, "da").cuda()
+    opt = common.make_optimizer(model.parameters(), "adam", lr0=1e-3)
+
+    def separate():
+        ep_s = {**source, **model(source["point_clouds"])}
+        ep_t = {**target, **model(target["point_clouds"])}
+        return vote_losses.get_loss_DA_separate(ep_s, ep_t, cfg)
+
+    reset(counters)
+    with ShapeLog() as log:
+        aux = common.update(model, opt, 0.5, separate)
+    paths["da_separate"] = read_counts(counters)
+    shapes["da_separate"] = log.shapes
+    print(f"[model surface: da_separate] VoteNetDA + get_loss_DA_separate"
+          f" on {B} + {B} scenes, one step: loss {aux['loss'].item():.4f}"
+          f" (da {aux['da_loss'].item():.4f}); launches"
+          f" {paths['da_separate']}")
+    require(math.isfinite(aux["loss"].item()), "da_separate: loss")
+    check_counts("da_separate", paths["da_separate"], "da", 2, 1)
+    del model, opt
+
+    source = first_batch(cfg, virtual, "train_aug", center_jitter=0.1)
+    torch.manual_seed(0)
+    model = VoteNetDAJitter2(**heads).cuda()
+    opt = common.make_optimizer(model.parameters(), "adam", lr0=1e-3)
+    step = votenet.make_da_train_step(model, opt, cfg, jitter=True)
+    reset(counters)
+    with ShapeLog() as log:
+        losses = [step(source, target, 0.5, 30)["loss"].item()
+                  for _ in range(2)]
+    paths["da_jitter2"] = read_counts(counters)
+    shapes["da_jitter2"] = log.shapes
+    print(f"[model surface: da_jitter2] VoteNetDAJitter2 +"
+          f" get_loss_DA_jitter (epoch 30) on {B} + {B} scenes, 2 steps:"
+          f" losses {losses}; launches {paths['da_jitter2']}")
+    require(all(map(math.isfinite, losses)), f"da_jitter2: {losses}")
+    check_counts("da_jitter2", paths["da_jitter2"], "da_jitter2", 4, 2)
+    model.eval()
+    with torch.inference_mode():
+        ep = model(source["point_clouds"], source["center_label"],
+                   source["sem_cls_label"])
+    require(ep["center_features"].shape == (B, 64, 128 + cfg.num_class)
+            and bool(torch.isfinite(ep["jitter_pred"]).all()),
+            "da_jitter2: center_features or jitter_pred")
+    head = ("jitter2_head", ep["aggregated_vote_xyz"],
+            ep["aggregated_vote_features"], source["center_label"], 0.8, 16)
+    print(f"[kernels: VoteNetDAJitter2 head] B={B}, the 256"
+          " aggregated votes grouped at the 64 GT centres a scene, C = 3 +"
+          " 128, scale 1.0")
+    rec = check_bq(*head[:2], *head[3:], bq, reps=5)
+    check_bq_tiles(*head[:2], *head[3:], bq)
+    fwd, bwd = check_localize(*head, bq, grouping, reps=10, needs=("xyz",),
+                              scale=1.0)
+    bq_recs.append(rec)
+    fwd_recs.append(fwd)
+    bwd_recs.append(bwd)
+    del model, opt, step, ep, head
+
+    # cam: one forward, timed
+    torch.manual_seed(0)
+    cam = Pointnet2BackboneCam(input_feature_dim=1).cuda().eval()
+    reset(counters)
+    with torch.inference_mode(), ShapeLog() as log:
+        ep = cam(pc)
+        paths["cam"] = read_counts(counters)
+        cam_ms = cuda_ms(lambda: cam(pc), reps=10, warmup=1)
+    shapes["cam"] = log.shapes
+    require(ep["sa4_features"].shape == (B, 256, 256)
+            and bool(torch.isfinite(ep["sa4_features"]).all())
+            and "fp2_features" not in ep, "cam: sa4 features")
+    print(f"[model surface: cam] Pointnet2BackboneCam forward B={B} N={N}:"
+          f" {cam_ms:.3f} ms (median of 10); launches {paths['cam']}"
+          f"  | {header}")
+    check_counts("cam", paths["cam"], "cam", 1, 0)
+    del cam, ep
+
+    # surface_variants: the SA/FP variants at VoteNet's SA widths, inputs
+    # from a VoteNet forward of the batch
+    torch.manual_seed(0)
+    net = evaluate.build_model(flags, cfg).cuda().eval()
+    with torch.no_grad():
+        ep = net(pc)
+    del net
+    xyz, height = pc[..., :3], pc[..., 3:]
+    torch.manual_seed(0)
+    modules = [
+        ("msg_sa1", tnn.SAModuleMSG(
+            2048, (0.1, 0.2, 0.4), (16, 32, 64), 1, [[64, 64, 128]] * 3),
+         (xyz, height)),
+        ("rlt_sa2", tnn.SAModuleVotesRlt(1024, 0.4, 32, 128,
+                                         [128, 128, 256]),
+         (ep["sa1_xyz"], ep["sa1_features"])),
+        ("lfp_sa4_sa3", tnn.LFPModuleMSG(
+            (0.8, 1.2), (16, 16), 256, 256, [[256, 256]] * 2, [256, 256]),
+         (ep["sa3_xyz"], ep["sa4_xyz"], ep["sa3_features"],
+          ep["sa4_features"])),
+    ] + [(f"sa2_{name}", tnn.SAModuleVotes(1024, 0.4, 32, 128,
+                                           [128, 128, 256], **kw),
+          (ep["sa1_xyz"], ep["sa1_features"]))
+         for name, kw in (("avg", dict(pooling="avg")),
+                          ("rbf", dict(pooling="rbf")),
+                          ("no_xyz", dict(use_xyz=False)))]
+    print(f"[model surface: surface_variants] B={B} N={N}, each module in"
+          " train mode through the kernels and through the plain grouping"
+          " on the same neighbourhoods")
+    total = {}
+    with ShapeLog() as log:
+        for label, module, inputs in modules:
+            grads_of = (2, 3) if label.startswith("lfp") else (1,)
+            add_counts(total, compare_module(label, module.cuda(), inputs,
+                                             grads_of, counters))
+    paths["surface_variants"] = total
+    shapes["surface_variants"] = log.shapes
+    want = dict(fps=5, ball_query=9, group_stratified=9,
+                group_localize_stratified=9, group_stratified_backward=9,
+                group_localize_stratified_backward=9)
+    require(total == want, f"surface_variants: launches {total}, expected"
+            f" {want} (FPS: MSG, Rlt, 3 SA2 variants; K3 and K4: 3 MSG"
+            " branches, Rlt, 2 LFP scales, 3 SA2 variants)")
+    del modules
+    # the new shapes: K3 in every tile, the fused K4 against its plain
+    # version (scale 1.0: no module here normalizes)
+    inds = fps.furthest_point_sample(xyz, 2048)
+    sa1_ctr = grouping.gather_points(xyz, inds)
+    new_shapes = [(f"msg_r{r}", xyz, height, sa1_ctr, r, s)
+                  for r, s in ((0.1, 16), (0.2, 32), (0.4, 64))]
+    new_shapes.append(("rlt_sa2", ep["sa1_xyz"], ep["sa1_features"],
+                       ep["sa2_xyz"], 0.4, 32))
+    new_shapes += [(f"lfp_r{r}", ep["sa4_xyz"], ep["sa4_features"],
+                    ep["sa3_xyz"], r, 16) for r in (0.8, 1.2)]
+    for label, x, f, c, r, ns in new_shapes:
+        if label != "rlt_sa2":  # SA2's own query: checked with the paths
+            rec = check_bq(label, x, c, r, ns, bq, reps=5)
+            check_bq_tiles(label, x, c, r, ns, bq)
+            bq_recs.append(rec)
+        fwd, bwd = check_localize(label, x, f, c, r, ns, bq, grouping,
+                                  reps=10, needs=("features",), scale=1.0)
+        fwd_recs.append(fwd)
+        bwd_recs.append(bwd)
+    return paths, shapes, bq_recs, fwd_recs, bwd_recs, boxnet_step
 
 
 def gf_flags():
@@ -2198,6 +2728,7 @@ PAIRS = {
         "--query_mode", "exact", "--guard_every_steps", "0"], "gf", 51),
 }
 PAIR_LATE = 11  # the late ratio's epochs: the last 11 matched
+PAIRS_TIMEOUT = 900  # seconds for the four pairs in their process
 PAIR_BAND = (0.85, 1.15)
 # flags whose values differ from the JAX leg's by design: paths, the span,
 # the start (the JAX legs of BR and GF started fresh; CenterRefine's second
@@ -2532,6 +3063,46 @@ def parity_pairs_phase(tmp, inits, counters, header):
         require(PAIR_BAND[0] <= ratio <= PAIR_BAND[1],
                 f"pair {pair}: late ratio {ratio:.3f} outside {PAIR_BAND}")
     return launches
+
+
+def start_pairs(tmp, inits):
+    """The parity pairs (`parity_pairs_phase`) in a process of their own
+    (``chip_smoke.py --parity_pairs DIR``), to run beside the phases that
+    time no step: the learning check and ``[datagen -> br]``. The pairs'
+    numbers do not depend on what runs beside them; their walls do."""
+    import atexit
+
+    root = pathlib.Path(tmp) / "pairs_run"
+    root.mkdir()
+    (root / "inits.json").write_text(json.dumps(
+        {k: str(v) for k, v in inits.items()}))
+    log = open(root / "pairs.log", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--parity_pairs",
+         str(root)], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    # stopped with the smoke, whatever ends it
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return dict(proc=proc, log=log, root=root, start=time.perf_counter())
+
+
+def finish_pairs(job):
+    """The pairs' process to its end (PAIRS_TIMEOUT from its start), its
+    output printed; fails on a nonzero exit. Returns the launches by
+    pair."""
+    left = PAIRS_TIMEOUT - (time.perf_counter() - job["start"])
+    try:
+        rc = job["proc"].wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        job["proc"].kill()
+        job["proc"].wait()
+        rc = f"killed at its {PAIRS_TIMEOUT} s"
+    job["log"].seek(0)
+    print(job["log"].read().rstrip())
+    job["log"].close()
+    secs = time.perf_counter() - job["start"]
+    print(f"[parity pairs] their process: {secs:.1f} s from start to exit")
+    require(rc == 0, f"the parity pairs' process exited {rc}")
+    return json.loads((job["root"] / "launches.json").read_text())
 
 
 # ---------------------------------------------------------------------------
@@ -3353,11 +3924,28 @@ def _launch_pair(module, args, cwd):
         env = dict(os.environ, BTR_COORDINATOR=f"127.0.0.1:{port}",
                    BTR_NUM_PROCESSES="2", BTR_PROCESS_ID=str(r),
                    BTR_LOCAL_PROCESSES="2", PYTHONPATH=str(ROOT))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", f"backtoreality_tpu_torch.train.{module}",
-             *args], env=env, cwd=cwd, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+        procs.append(_spawn([sys.executable, "-m",
+                             f"backtoreality_tpu_torch.train.{module}",
+                             *args], env, cwd))
     return procs
+
+
+def _spawn(cmd, env, cwd):
+    """`cmd` started, its output to a file (`out_file`, read by `_wait`),
+    not a pipe: a process that runs beside another is read only when that
+    one is done."""
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(cmd, env=env, cwd=cwd, stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
+    proc.out_file = out
+    return proc
+
+
+def start_contract(module, args, cwd):
+    """The two --multihost processes of a contract, started: a dict of the
+    module, its arguments, the processes and the start time."""
+    return dict(module=module, args=args, start=time.perf_counter(),
+                procs=_launch_pair(module, args + ["--multihost"], cwd))
 
 
 def _wait(procs, timeout=DP_TIMEOUT):
@@ -3367,9 +3955,10 @@ def _wait(procs, timeout=DP_TIMEOUT):
     outs = []
     try:
         for p in procs:
-            out, _ = p.communicate(timeout=max(deadline - time.monotonic(),
-                                               0.0))
-            outs.append((p.returncode, out))
+            p.wait(timeout=max(deadline - time.monotonic(), 0.0))
+            p.out_file.seek(0)
+            outs.append((p.returncode, p.out_file.read()))
+            p.out_file.close()
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3385,16 +3974,17 @@ def _epoch_losses(text):
             re.finditer(r"epoch (\d+) .*?loss ([\d.]+)", text)}
 
 
-def dp_contract(module, args, log, cwd, epochs):
+def dp_contract(job, log, epochs):
     """The JAX package's two-process contract (tests/test_multiprocess.py)
-    for `module` at --multihost world 2 on the card: both ranks exit 0 and
-    log the same loss every epoch, one set of checkpoints (rank 0's), the
-    rank-1 log, and an evaluation in both logs. Returns its seconds."""
-    t0 = time.perf_counter()
-    for rc, out in _wait(_launch_pair(module, args + ["--multihost"], cwd)):
+    for the pair `job` (`start_contract`) at --multihost world 2 on the
+    card: both ranks exit 0 and log the same loss every epoch, one set of
+    checkpoints (rank 0's), the rank-1 log, and an evaluation in both
+    logs. Returns its seconds."""
+    module, args = job["module"], job["args"]
+    for rc, out in _wait(job["procs"]):
         require(rc == 0, f"{module} --multihost: a rank exited {rc}:\n"
                 f"{out[-3000:]}")
-    secs = time.perf_counter() - t0
+    secs = time.perf_counter() - job["start"]
     log0 = (log / "log_train.txt").read_text()
     rank1 = log / "log_train.txt.rank1"
     require(rank1.exists(), f"{module}: no log_train.txt.rank1")
@@ -3564,35 +4154,43 @@ def dp_phase(scans, virtual, gf_scans, tmp, counters, header):
     print(f"[data parallel] world-2 ranks: {ranks_s:.1f} s from spawn to"
           " exit")
 
-    # the JAX package's multi-process contract, on the 16-scan fixtures
+    # the JAX package's multi-process contract, on the 16-scan fixtures:
+    # votenet_br's and gf_fsb's pairs run beside votenet_fsb's and its
+    # resume (each a group of its own; the contract times nothing)
     per_process = str(B // DP_WORLD)
     vote = ["--data_root", str(scans), "--train_split", "all",
             "--val_split", "all", "--num_point", str(N), "--batch_size",
             per_process, "--fps_candidates", "8192"]
-    log = tmp / "dp_fsb"
-    dp_contract("votenet_fsb", vote + ["--log_dir", str(log), "--max_epoch",
-                                       "2", "--eval_freq", "2"],
-                log, tmp, range(2))
-    require(sorted(p.name for p in log.glob("*.tar")) == ["checkpoint.tar"],
-            "votenet_fsb: one checkpoint")
-    dp_contract("votenet_fsb", vote + [
-        "--log_dir", str(log), "--max_epoch", "3", "--eval_freq", "1",
-        "--resume", "--checkpoint_path", str(log / "checkpoint.tar")],
-        log, tmp, range(3))
-    log = tmp / "dp_br"
-    dp_contract("votenet_br", vote + [
-        "--log_dir", str(log), "--source_data_root", str(virtual),
-        "--max_epoch", "1", "--eval_freq", "1"], log, tmp, range(1))
-    require(sorted(p.name for p in log.glob("*.tar")) == ["train_BR.tar"],
-            "votenet_br: one checkpoint")
-    log = tmp / "dp_gf"
-    dp_contract("gf_fsb", [
-        "--data_root", str(gf_scans), "--train_split", "all", "--val_split",
-        "all", "--batch_size", per_process, "--log_dir", str(log),
-        "--max_epoch", "1", "--val_freq", "1"], log, tmp, range(1))
-    require(sorted(p.name for p in log.glob("*.tar"))
-            == ["ckpt_epoch_0.tar", "ckpt_epoch_last.tar"],
-            "gf_fsb: one set of checkpoints")
+    fsb, br, gf = tmp / "dp_fsb", tmp / "dp_br", tmp / "dp_gf"
+    br_args = vote + ["--log_dir", str(br), "--source_data_root",
+                      str(virtual), "--max_epoch", "1", "--eval_freq", "1"]
+    gf_args = ["--data_root", str(gf_scans), "--train_split", "all",
+               "--val_split", "all", "--batch_size", per_process,
+               "--log_dir", str(gf), "--max_epoch", "1", "--val_freq", "1"]
+    br_job = start_contract("votenet_br", br_args, tmp)
+    gf_job = start_contract("gf_fsb", gf_args, tmp)
+    try:
+        dp_contract(start_contract("votenet_fsb", vote + [
+            "--log_dir", str(fsb), "--max_epoch", "2", "--eval_freq", "2"],
+            tmp), fsb, range(2))
+        require(sorted(p.name for p in fsb.glob("*.tar"))
+                == ["checkpoint.tar"], "votenet_fsb: one checkpoint")
+        dp_contract(start_contract("votenet_fsb", vote + [
+            "--log_dir", str(fsb), "--max_epoch", "3", "--eval_freq", "1",
+            "--resume", "--checkpoint_path", str(fsb / "checkpoint.tar")],
+            tmp), fsb, range(3))
+        dp_contract(br_job, br, range(1))
+        require(sorted(p.name for p in br.glob("*.tar"))
+                == ["train_BR.tar"], "votenet_br: one checkpoint")
+        dp_contract(gf_job, gf, range(1))
+        require(sorted(p.name for p in gf.glob("*.tar"))
+                == ["ckpt_epoch_0.tar", "ckpt_epoch_last.tar"],
+                "gf_fsb: one set of checkpoints")
+    finally:
+        for p in br_job["procs"] + gf_job["procs"]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     return paths
 
 
@@ -3628,9 +4226,7 @@ def preemption_phase(scans, gf_scans, tmp, header):
     run = args + ["--log_dir", str(log), "--guard_every_steps", "1"]
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     cmd = [sys.executable, "-m", "backtoreality_tpu_torch.train.votenet_fsb"]
-    proc = subprocess.Popen(cmd + run + ["--max_epoch", "30"], env=env,
-                            cwd=tmp, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    proc = _spawn(cmd + run + ["--max_epoch", "30"], env, tmp)
     try:
         deadline = time.monotonic() + DP_TIMEOUT
         while not (log / "checkpoint.tar").exists():
@@ -3679,11 +4275,10 @@ def preemption_phase(scans, gf_scans, tmp, header):
           " replayed")
     require(not differ, f"preemption: the checkpoint is not the snapshot:"
             f" {differ[:5]}")
-    (rc, out), = _wait([subprocess.Popen(
+    (rc, out), = _wait([_spawn(
         cmd + run + ["--max_epoch", str(epoch + 2), "--resume",
                      "--checkpoint_path", str(log / "checkpoint.tar")],
-        env=env, cwd=tmp, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)])
+        env, tmp)])
     require(rc == 0 and f"epoch {epoch + 1:03d}" in out
             and common.load_checkpoint(log / "checkpoint.tar")["epoch"]
             == epoch + 1, f"preemption: --resume exited {rc}:\n{out[-3000:]}")
@@ -3764,6 +4359,11 @@ def main() -> int:
                         help="stop after the kernels' checks and times"
                              " (phases 1 and 2): for comparing two trees"
                              " in one run, not a pass")
+    parser.add_argument("--parity_pairs", metavar="DIR",
+                        help="run only the parity pairs, with the imported"
+                             " inits DIR/inits.json names, writing their"
+                             " launches to DIR/launches.json (the full run"
+                             " starts this in a process of its own)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -3796,6 +4396,13 @@ def main() -> int:
     device = torch.device("cuda")
     kernels = (fps.KERNEL, bq.KERNEL, grouping.KERNEL)
     counters = kernels + (grouping.LOCALIZE,)
+    if args.parity_pairs:
+        root = pathlib.Path(args.parity_pairs)
+        inits = {k: pathlib.Path(v) for k, v in
+                 json.loads((root / "inits.json").read_text()).items()}
+        launches = parity_pairs_phase(root, inits, counters, header)
+        (root / "launches.json").write_text(json.dumps(launches))
+        return 0
 
     # each phase's seconds, printed at the end
     laps, last = {}, [time.perf_counter()]
@@ -4037,8 +4644,19 @@ def main() -> int:
     lap("votenet bf16")
     val = gate_phase(tmp.name, counters)
     lap("checkpoint gate")
-    gate_t2_phase(val, tmp.name, counters)
-    lap("checkpoint gate lad_t2")
+    gate_bf16_phase(val, tmp.name, counters, lap)
+    (surface, shapes, surface_bq, surface_fwd, surface_bwd,
+     boxnet_step) = model_surface_phase(scans, virtual, cfg, counters,
+                                        header, fps, bq, grouping)
+    paths.update(surface)
+    bq_records += surface_bq
+    local_fwd += surface_fwd
+    local_bwd += surface_bwd
+    tag_paths(shapes, {
+        "fps": fps_records, "ball_query": bq_records, "localize": local_fwd,
+        "localize_backward": local_bwd, "group": group_fwd,
+        "group_backward": group_bwd})
+    lap("model surface")
 
     # 7. GroupFree3D: serving, FSB and WSB, and the learning check
     paths["gf_serving"] = gf_serving_phase(gf_scans, tmp.name, cfg, counters,
@@ -4061,17 +4679,9 @@ def main() -> int:
     paths.update(gf_da_phase(gf_scans, gf_virtual, tmp.name, cfg, counters,
                              header))
     lap("gf br/center refine")
-    # [datagen -> br]: the scans written and exported, the syntheses
-    # started; they run on the host's spare cores beside the phases up to
-    # the parity pairs, which time no host-bound step
-    datagen = start_datagen(tmp.name)
-    lap("datagen start")
-    gf_learning_check(tmp.name, counters)
-    lap("gf learning check")
-
     # 8. --query_mode exact: the exact query at the layers' shapes (and GF's
     # SA1 at N=50000), the reference's inits imported, both detectors served
-    # from them, and the round-5 parity pairs
+    # from them (timed, before anything runs beside them)
     gf_xyz = gf_first_batch(gf_scans, cfg, use_height=False)["point_clouds"]
     gf_ctr = grouping.gather_points(gf_xyz, fps.furthest_point_sample(
         gf_xyz, 2048))
@@ -4083,10 +4693,18 @@ def main() -> int:
     paths.update(exact_serving_phase(scans, gf_scans, inits, cfg, counters,
                                      header))
     lap("serving exact")
-    paths.update(parity_pairs_phase(tmp.name, inits, counters, header))
-    lap("parity pairs")
+    # the round-5 parity pairs and [datagen -> br]'s syntheses in processes
+    # of their own, beside the learning check and votenet_br on the
+    # syntheses, which time no step
+    pairs = start_pairs(tmp.name, inits)
+    datagen = start_datagen(tmp.name)
+    lap("datagen start")
+    gf_learning_check(tmp.name, counters)
+    lap("gf learning check")
     paths.update(datagen_br_phase(datagen, tmp.name, counters, header))
     lap("datagen br")
+    paths.update(finish_pairs(pairs))
+    lap("parity pairs")
 
     # 10. data parallelism, the preemption guard and the profiler window
     paths.update(dp_phase(scans, virtual, gf_scans, tmp.name, counters,
@@ -4130,13 +4748,16 @@ def main() -> int:
     kernels_line[0]["serial_floor_us"] = {str(k): v
                                           for k, v in floor.items()}
     for k in kernels_line:
+        backward = k["name"].endswith("_backward")
+        surface = SURFACE_TRAINING + (() if backward else SURFACE_SERVING)
         require(all(k["launches_by_path"][p] > 0
                     for p in TRAINING + GF_TRAINING + BF16_TRAINING
-                    + DP_PATHS),
+                    + DP_PATHS + surface),
                 f"{k['name']}: not launched on every training path")
         checked = {p for r in k["per_shape"] for p in r.get("paths", ())}
-        require(set(DP_PATHS) <= checked, f"{k['name']}: no check against"
-                f" the plain version at {set(DP_PATHS) - checked}'s shapes")
+        want = set(DP_PATHS + surface)
+        require(want <= checked, f"{k['name']}: no check against"
+                f" the plain version at {want - checked}'s shapes")
     print("[seconds] " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
           + f"; total {sum(laps.values()):.1f}")
     print(header)
