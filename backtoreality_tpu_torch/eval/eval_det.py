@@ -61,6 +61,28 @@ def eval_det_cls(pred, gt, ovthresh=0.25, use_07_metric=False,
     BB = BB[sorted_ind, ...] if BB.size else BB
     image_ids = [image_ids[i] for i in sorted_ind]
 
+    # Precompute per-image IoU matrices with the native library when the
+    # boxes are corner-form (8, 3) and the default OBB IoU is in use —
+    # this is the host-side hot loop (python per-pair IoU otherwise). A
+    # library that cannot be built raises (`native`): pass another
+    # get_iou_func for the Python loop.
+    iou_cache = None
+    if (get_iou_func is get_iou_obb and BB.size
+            and BB.ndim == 3 and BB.shape[1:] == (8, 3)):
+        from backtoreality_tpu_torch.eval import native
+
+        iou_cache = {}
+        det_rows = {}
+        for d, img_id in enumerate(image_ids):
+            det_rows.setdefault(img_id, []).append(d)
+        for img_id, rows in det_rows.items():
+            bbgt = class_recs[img_id]["bbox"]
+            if bbgt.size:
+                mat = native.box3d_iou_matrix(
+                    BB[rows].astype(float), bbgt.astype(float))
+                for local, d in enumerate(rows):
+                    iou_cache[d] = mat[local]
+
     nd = len(image_ids)
     tp = np.zeros(nd)
     fp = np.zeros(nd)
@@ -68,11 +90,17 @@ def eval_det_cls(pred, gt, ovthresh=0.25, use_07_metric=False,
         rec_entry = class_recs[image_ids[d]]
         bbgt = rec_entry["bbox"].astype(float)
         ovmax, jmax = -np.inf, -1
-        bb = BB[d].astype(float)
-        for j in range(bbgt.shape[0]):
-            iou = get_iou_func(bb, bbgt[j])
-            if iou > ovmax:
-                ovmax, jmax = iou, j
+        if iou_cache is not None and d in iou_cache:
+            ious = iou_cache[d]
+            if len(ious):
+                jmax = int(np.argmax(ious))
+                ovmax = float(ious[jmax])
+        else:
+            bb = BB[d].astype(float)
+            for j in range(bbgt.shape[0]):
+                iou = get_iou_func(bb, bbgt[j])
+                if iou > ovmax:
+                    ovmax, jmax = iou, j
         if ovmax > ovthresh and not rec_entry["det"][jmax]:
             tp[d] = 1.0
             rec_entry["det"][jmax] = True

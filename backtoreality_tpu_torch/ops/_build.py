@@ -43,7 +43,10 @@ class Kernel:
     ``launches`` counts the kernel launches made through the op's
     wrapper; the wrapper adds one per launch and nothing else does.
     ``backward_launches`` counts the same for the op's backward, where
-    the source has one.
+    the source has one. ``bytes`` sums the input and output bytes of those
+    launches (forward and backward), each tensor counted once, as XLA
+    counts a custom call's operands: the dispatcher never sees a ctypes
+    launch, so a byte count of aten ops (``tools/mfu.py``) reads it here.
     """
 
     def __init__(self, name: str, source: str, replaces: str,
@@ -54,6 +57,7 @@ class Kernel:
         self.signatures = signatures
         self.launches = 0
         self.backward_launches = 0
+        self.bytes = 0
         self._lib = None
 
     def library_path(self) -> pathlib.Path:
@@ -122,6 +126,13 @@ def build_all(kernels) -> dict[str, str]:
         logs[k.name] = k.finish_build(started[k.name])
         k.lib  # load now, so a bad library fails here
     return logs
+
+
+def nbytes(*tensors) -> int:
+    """The bytes of `tensors` (None skipped): what a launch reads or
+    writes of them."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def check(err: int, what: str):

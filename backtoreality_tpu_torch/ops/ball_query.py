@@ -280,6 +280,7 @@ def _ball_query_stratified_cuda(xyz, new_xyz, radius, nsample,
         _build.stream_of(xyz))
     _build.check(err, "bq_stratified_launch")
     KERNEL.launches += 1
+    KERNEL.bytes += _build.nbytes(xyz, new_xyz, idx, hit)
     return idx, hit
 
 

@@ -174,6 +174,7 @@ def _fps_cuda(xyz: torch.Tensor, npoint: int,
         _build.stream_of(xyz))
     _build.check(err, "fps_launch")
     KERNEL.launches += 1
+    KERNEL.bytes += _build.nbytes(xyz, out)
     return out
 
 

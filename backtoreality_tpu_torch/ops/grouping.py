@@ -192,6 +192,7 @@ class _GroupStratifiedCuda(torch.autograd.Function):
             _build.ptr(out), _build.stream_of(points))
         _build.check(err, "group_stratified_fwd_launch")
         KERNEL.launches += 1
+        KERNEL.bytes += _build.nbytes(points, idx, out)
         ctx.save_for_backward(idx, hit.contiguous())
         ctx.n = n
         return out
@@ -244,6 +245,7 @@ def _backward_passes(gout, idx, hit, n, radius=None, want_xyz=False,
         _build.check(err, "group_localize_bwd_launch")
         LOCALIZE.backward_launches += 1
     KERNEL.backward_launches += 1
+    KERNEL.bytes += _build.nbytes(gout, idx, hit, grad, gcentre)
     return grad, gcentre
 
 
@@ -291,6 +293,7 @@ class _GroupLocalizeCuda(torch.autograd.Function):
         _build.check(err, "group_localize_fwd_launch")
         KERNEL.launches += 1
         LOCALIZE.launches += 1
+        KERNEL.bytes += _build.nbytes(xyz, features, new_xyz, idx, out)
         ctx.save_for_backward(idx, hit.contiguous())
         ctx.n = n
         ctx.radius = radius

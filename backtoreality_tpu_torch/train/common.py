@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import json
 import logging
 import math
@@ -304,6 +305,24 @@ def model_args(batch, jitter: bool) -> tuple:
         return (batch["point_clouds"], batch["center_label"],
                 batch["sem_cls_label"])
     return (batch["point_clouds"],)
+
+
+def draw_generator(device, *key: int) -> torch.Generator:
+    """A generator on `device` seeded from the integers `key` alone (a
+    hash of them, as ``jax.random.fold_in`` folds a step into a key): the
+    draws of ``--cluster_sampling random``. The global RNG is neither read
+    nor advanced."""
+    digest = hashlib.sha256(repr(tuple(int(k) for k in key)).encode())
+    seed = int.from_bytes(digest.digest()[:8], "little")
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def optimizer_steps(optimizer: torch.optim.Optimizer) -> int:
+    """The updates `optimizer` has taken: the largest per-parameter
+    ``step`` of its state (Adam's, AdamW's), which travels in its
+    state_dict, so a resumed run goes on counting; 0 before the first."""
+    steps = [int(s["step"]) for s in optimizer.state.values() if "step" in s]
+    return max(steps, default=0)
 
 
 # ---------------------------------------------------------------------------

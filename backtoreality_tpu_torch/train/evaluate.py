@@ -85,7 +85,8 @@ def add_common_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--num_target", type=int, default=256)
     parser.add_argument("--vote_factor", type=int, default=1)
     parser.add_argument("--cluster_sampling", default="vote_fps",
-                        choices=["vote_fps", "seed_fps"])
+                        help="vote_fps or seed_fps (random is refused: see"
+                             " `refuse_random`)")
     parser.add_argument("--ap_iou_thresh", type=float, default=0.25)
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--no_height", action="store_true")
@@ -117,6 +118,24 @@ def add_common_flags(parser: argparse.ArgumentParser):
                         help="torch device (default cuda; pass cpu to run"
                              " on the CPU)")
     return parser
+
+
+def refuse_random(parser, sampling: str):
+    """Exit through `parser` unless `sampling` is vote_fps or seed_fps.
+    ``random`` is refused with its reason: the JAX package's evaluate
+    passes its model no rng (``backtoreality_tpu/train/evaluate.py``), so
+    random proposals fail there, and this port scores what it scores.
+    The training loops evaluate under ``random`` themselves."""
+    if sampling == "random":
+        parser.error("--cluster_sampling random is not scored by evaluate:"
+                     " its proposals are drawn from a generator that only"
+                     " the training loops pass (as the JAX package's"
+                     " evaluate passes no rng); score such a model with"
+                     " vote_fps or seed_fps, or read the training loop's"
+                     " own evaluation")
+    if sampling not in ("vote_fps", "seed_fps"):
+        parser.error(f"--cluster_sampling {sampling!r}: expected vote_fps,"
+                     " seed_fps or random")
 
 
 def _input_dim(flags) -> int:
@@ -234,6 +253,8 @@ def main(argv=None):
                           " in-loop eval)")
     sub.add_argument("--recal_split", default="all")
     flags = sub.parse_args(rest)
+    if pre.model == "votenet":
+        refuse_random(sub, flags.cluster_sampling)
     if not flags.checkpoint_path:
         raise SystemExit("--checkpoint_path is required")
     device = resolve_device(flags.device)

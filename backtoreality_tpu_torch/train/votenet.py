@@ -90,7 +90,10 @@ def add_common_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--num_target", type=int, default=256)
     parser.add_argument("--vote_factor", type=int, default=1)
     parser.add_argument("--cluster_sampling", default="vote_fps",
-                        choices=["vote_fps", "seed_fps"])
+                        choices=["vote_fps", "seed_fps", "random"],
+                        help="random: proposals at seeds drawn uniformly,"
+                             " from --seed and the step in training and"
+                             " alike for every evaluation batch")
     parser.add_argument("--ap_iou_thresh", type=float, default=0.25)
     parser.add_argument("--max_epoch", type=int, default=180)
     parser.add_argument("--batch_size", type=int, default=8)
@@ -136,17 +139,36 @@ def add_common_flags(parser: argparse.ArgumentParser):
     return common.add_parallel_flags(parser)
 
 
-def make_train_step(model, optimizer, criterion, cfg, *, jitter=False):
+def _draws(batch, seed, optimizer, *stream):
+    """The generator of a train forward's random proposal draws, seeded
+    from (`seed`, the optimizer's update count, `stream`) alone, as the
+    JAX step folds ``state.step`` into ``PRNGKey(seed)``; with several
+    ranks, each rank's rows draw apart (its rank folded in too). None
+    without a `seed` (the other samplings draw nothing)."""
+    if seed is None:
+        return None
+    key = (seed, common.optimizer_steps(optimizer), *stream)
+    if parallel.world() > 1:
+        key += (parallel.rank(),)
+    return common.draw_generator(batch["point_clouds"].device, *key)
+
+
+def make_train_step(model, optimizer, criterion, cfg, *, jitter=False,
+                    seed=None):
     """step(batch, bn_momentum) -> scalar aux tensors (on the device).
 
     One train-mode forward, the criterion on the global batch (the ranks'
     rows gathered, ``parallel.gather_rows``), backward and an optimizer
     step; BN running statistics move with `bn_momentum`. With `jitter`,
-    the model also takes the batch's centre and class labels."""
+    the model also takes the batch's centre and class labels. With a
+    `seed` (``--cluster_sampling random``), the forward draws its
+    proposals from a generator seeded from the seed and the step
+    (:func:`_draws`)."""
 
     def step(batch, bn_momentum):
         def forward_loss():
-            end_points = model(*model_args(batch, jitter))
+            end_points = model(*model_args(batch, jitter),
+                               _draws(batch, seed, optimizer))
             return criterion(parallel.gather_rows({**batch, **end_points}),
                              cfg)
 
@@ -155,19 +177,23 @@ def make_train_step(model, optimizer, criterion, cfg, *, jitter=False):
     return step
 
 
-def make_da_train_step(model, optimizer, cfg, *, jitter=False):
+def make_da_train_step(model, optimizer, cfg, *, jitter=False, seed=None):
     """step(batch_S, batch_T, bn_momentum, epoch) -> scalar aux tensors.
 
     The source forward, then the target forward (the BN running
     statistics move through both, in that order), the BR criterion
     (`get_loss_DA`), or with `jitter` the CenterRefine one
     (`get_loss_DA_jitter`, which reads `epoch`), one backward and one
-    optimizer step."""
+    optimizer step. With a `seed` (``--cluster_sampling random``), each
+    domain's forward draws from a generator of its own, seeded from the
+    seed, the step and the domain, as the JAX step splits its key."""
 
     def step(batch_S, batch_T, bn_momentum, epoch):
         def forward_loss():
-            ep_S = {**batch_S, **model(*model_args(batch_S, jitter))}
-            ep_T = {**batch_T, **model(*model_args(batch_T, jitter))}
+            ep_S = {**batch_S, **model(*model_args(batch_S, jitter),
+                                       _draws(batch_S, seed, optimizer, 0))}
+            ep_T = {**batch_T, **model(*model_args(batch_T, jitter),
+                                       _draws(batch_T, seed, optimizer, 1))}
             ep_S, ep_T = parallel.gather_rows(ep_S), parallel.gather_rows(ep_T)
             if jitter:
                 return vote_losses.get_loss_DA_jitter(ep_S, ep_T, epoch, cfg)
@@ -178,15 +204,20 @@ def make_da_train_step(model, optimizer, cfg, *, jitter=False):
     return step
 
 
-def make_eval_step(model, criterion, cfg, *, jitter=False):
+def make_eval_step(model, criterion, cfg, *, jitter=False, draws=False):
     """step(batch, sizes=None) -> (predictions for EVAL_KEYS, scalar aux).
     With `sizes` (``--num_devices``: every rank's rows of the global
-    batch), the predictions and the criterion are the global batch's."""
+    batch), the predictions and the criterion are the global batch's.
+    With `draws` (``--cluster_sampling random``), every batch draws its
+    proposals from a generator seeded alike, as the JAX loop evaluates
+    every batch under ``PRNGKey(0)``."""
 
     def step(batch, sizes=None):
         model.eval()
+        generator = (common.draw_generator(batch["point_clouds"].device, 0)
+                     if draws else None)
         with torch.no_grad():
-            outs = {**batch, **model(*model_args(batch, jitter))}
+            outs = {**batch, **model(*model_args(batch, jitter), generator)}
             if sizes is not None:
                 outs = parallel.gather_rows(outs, sizes)
             _, aux = criterion(outs, cfg)
@@ -276,6 +307,12 @@ def _resume(model, optimizer, path, logger):
     return ckpt["epoch"] + 1
 
 
+def _sampling_seed(flags) -> int | None:
+    """``--seed`` under ``--cluster_sampling random`` (the steps' draws
+    are seeded from it), else None."""
+    return flags.seed if flags.cluster_sampling == "random" else None
+
+
 def _split(flags) -> bool:
     """``--num_devices`` with several ranks: every rank reads the whole
     global batch and keeps its rows."""
@@ -318,8 +355,10 @@ def _train_loop_single(flags, device, recipe):
     parallel.check_same(len(train_loader), "train batches an epoch")
     history = ScalarHistory(flags.log_dir)
 
-    train_step = make_train_step(model, optimizer, criterion, cfg)
-    eval_step = make_eval_step(model, criterion, cfg)
+    seed = _sampling_seed(flags)
+    train_step = make_train_step(model, optimizer, criterion, cfg, seed=seed)
+    eval_step = make_eval_step(model, criterion, cfg,
+                               draws=seed is not None)
     recal_step = common.make_recal_step(model)
     recal_loader = (parallel.ShardedRows(train_loader) if _split(flags)
                     else train_loader)
@@ -422,11 +461,12 @@ def _train_loop_da(flags, device, recipe):
     parallel.check_same(steps_per_epoch, "train steps an epoch")
     history = ScalarHistory(flags.log_dir)
 
+    seed = _sampling_seed(flags)
     train_step = make_da_train_step(model, optimizer, cfg,
-                                    jitter=jitter_model)
+                                    jitter=jitter_model, seed=seed)
     # eval uses the weak criterion on the target domain
     eval_step = make_eval_step(model, vote_losses.get_loss_weak, cfg,
-                               jitter=jitter_model)
+                               jitter=jitter_model, draws=seed is not None)
     recal_step = common.make_recal_step(model, jitter=jitter_model)
     recal_loader = (parallel.ShardedRows(loader_T) if _split(flags)
                     else loader_T)
@@ -522,4 +562,11 @@ def main(recipe: str, argv=None):
         parser.add_argument("--dataset_version", default="point",
                             choices=["point", "mesh"])
     flags = parser.parse_args(argv)
+    if flags.cluster_sampling == "random" and common.recal_batches(flags):
+        # the JAX loop's recalibration step passes no rng, and its random
+        # proposal module asserts on one
+        parser.error("--cluster_sampling random draws its proposals from"
+                     " a generator that a train or evaluation step passes;"
+                     " BN recalibration's forwards have none, as in the JAX"
+                     " package: pass --bn_recal_batches 0")
     return common.launch(_train, flags, recipe)

@@ -83,6 +83,18 @@ gated on two steps from one state giving bitwise-equal parameters.
    ``votenet_fsb.main --bf16 --f32_tail 2`` for one epoch of 2 steps and
    an evaluation, which recalibrates BN over 20 train batches first (the
    float32 path's launches a forward and backwards a step).
+   ``[jitter_diag]`` (after the recipes): ``tools/jitter_diag.py`` on the
+   CenterRefine checkpoint and ``config.json`` over its 16 target scans:
+   ``objects`` equal to the scans' valid boxes, every field finite, 5 FPS
+   and 6 ball queries and fused groupings a batch. ``[cluster sampling
+   random]``: ``votenet_fsb.main --cluster_sampling random`` (2 steps and
+   an evaluation) twice with one seed and once with another, and
+   ``votenet_br.main`` with it: every forward's draws those of
+   ``train.common.draw_generator`` at (seed, step) (the DA step's source
+   and target at (seed, step, 0) and (seed, step, 1)), every evaluation
+   batch's at (0,); the two runs of one seed bitwise equal, the other
+   seed's draws other; 4 FPS, 5 ball queries and fused groupings a
+   forward, the shapes held (``ShapeLog``).
 6. The checkpoint gates: the JAX package's trained checkpoint
    (``evidence/round4/ckpt/lad_f32.tar.gz``) read by the port's msgpack
    reader and scored by ``evaluate.main`` over 3 subsample seeds on the
@@ -92,7 +104,12 @@ gated on two steps from one state giving bitwise-equal parameters.
    (N = 2, 1) after 20 batches of BN recalibration on the shapefix train
    split, as the JAX package scored them; fails unless each mean lies
    within twice the JAX spread, the seeds printed beside the JAX
-   package's. (``lad_t4`` is not gated: its band is open, ROADMAP §C.10.)
+   package's; then ``lad_t4`` (N = 4), whose band adds the JAX package's
+   own shift from its TPU to a CPU (ROADMAP §C.10), both terms printed.
+   Every gate's AP matching goes through the native IoU library
+   (``eval/native.py``; its calls counted); ``[native eval]`` times
+   lad_f32's matching through it and through the Python per-pair loop,
+   every class's AP within 1e-9.
    ``[model surface]``: the VoteNet model surface that no recipe runs, at
    B=8, N=40000 (``model_surface_phase``): ``BoxNet`` + ``get_loss_boxnet``
    (2 steps and an eval forward, then its step timed and gated on
@@ -108,7 +125,14 @@ gated on two steps from one state giving bitwise-equal parameters.
    grouping shapes checked; the launches of each path against the counts
    read off the code, and every shape each path launched FPS, the ball
    query or the fused grouping at (forward and backward, logged by
-   ``ShapeLog``) held by a check against the plain version.
+   ``ShapeLog``) held by a check against the plain version. ``[mfu]``:
+   ``tools/mfu.py`` for VoteNet (B=8, N=40000, no height feature) and
+   GroupFree3D (B=8, N=50000, 6 decoder layers), both with 8192
+   candidates: a step's FLOPs and bytes, MFU_ITERS steps timed, each
+   share of the card's peaks in (0, 100], the launches of every step and
+   the shapes checked (VoteNet's SA1 grouping without features and GF's
+   FPS over 8192 candidates of 50000-point rows have records of their
+   own in phase 2).
 7. GroupFree3D at its CLI defaults (B=8, N=50000, 6 decoder layers, 256
    queries, no height feature) on 16 synthetic scans of 52000 points:
    ``evaluate --model groupfree`` with random seeded weights (launches 4
@@ -149,7 +173,7 @@ gated on two steps from one state giving bitwise-equal parameters.
    (VoteNet, B=8, N=40000) and GF's (2 decoder layers, feed-forward 128,
    height, N=50000): FPS 5 and 4 launches a forward, K3 and K4 none; a
    batch timed. Then the round-5 system-parity pairs (WSB, BR,
-   CenterRefine, GF), in a process of their own (``--parity_pairs``)
+   CenterRefine, GF), in a process of their own (``--child pairs``)
    beside the learning check and ``[datagen -> br]``, on the ``parity``
    and ``br`` fixtures of the port's
    ``tools.parity_fixture``, each recipe's ``main`` with the JAX leg's
@@ -202,11 +226,16 @@ gated on two steps from one state giving bitwise-equal parameters.
    two ``--multihost`` processes on the card, batch 4 each, on the 16-scan
    fixtures: equal epoch losses
    on both ranks, rank 0's checkpoints only, ``log_train.txt.rank1``, an
-   evaluation in both logs. ``[preemption]``: ``votenet_fsb`` with
-   ``--guard_every_steps 1`` in a process of its own, sent SIGTERM in its
-   second epoch: exit 143, the checkpoint (epoch 0) bitwise the state
-   after as many steps replayed here, ``--resume`` finishes; one
-   ``guard.update`` timed for VoteNet's and GF's state. ``[profile]``:
+   evaluation in both logs. ``[preemption]`` (in a process of its own,
+   ``--child preemption``, started beside the learning check):
+   ``votenet_fsb`` with ``--guard_every_steps 1`` in a process of its
+   own, sent SIGTERM in its second epoch: exit 143, the checkpoint (epoch
+   0) bitwise the state after as many steps replayed, ``--resume``
+   finishes; after data parallelism one ``guard.update`` timed for
+   VoteNet's and GF's state. ``[gf sweep]`` (``--child gf_sweep``, beside
+   the learning check too): ``tools/gf_sweep.py --seeds 0 --candidates
+   8192 --max_epoch 2 --num_point 20000`` on the 16 GF scans, two lines,
+   the exact arm first, finite scores, its launches. ``[profile]``:
    ``votenet_fsb.main --profile_dir`` over 16 steps writes a trace of steps
    10-15 naming the FPS, ball-query and grouping kernels.
 10. Print each phase's seconds, the card's name and power limit, one JSON
@@ -278,6 +307,16 @@ N_GF = 50000
 SURFACE_TRAINING = ("boxnet", "da_separate", "da_jitter2",
                     "surface_variants")
 SURFACE_SERVING = ("cam",)
+# this slice's paths logged by `ShapeLog`: --cluster_sampling random in
+# votenet_fsb and votenet_br, tools/mfu.py's two steps (VoteNet without the
+# height feature, GF with 8192 candidates), tools/jitter_diag.py's
+# forwards of the CenterRefine checkpoint; tools/gf_sweep.py (N=20000, in a
+# process of its own) has its launches counted
+TOOL_TRAINING = ("random_fsb", "random_br", "mfu_votenet", "mfu_gf")
+TOOL_SERVING = ("jitter_diag",)
+MFU_ITERS = 30
+SWEEP_TIMEOUT = 600  # seconds for tools/gf_sweep.py in its process
+PREEMPTION_TIMEOUT = 600  # seconds for [preemption]'s process
 # launches per forward (FPS, ball query, the fused grouping) and grouping
 # backwards per train step, by model graph. A DA step runs two forwards
 # and one backward: SA2-SA4 and vote clustering in each, and in
@@ -290,14 +329,18 @@ SURFACE_SERVING = ("cam",)
 # FP2 features take a gradient (4 backwards). VoteNetDAJitter2's head
 # groups the aggregated votes with their features detached but their
 # positions not: one more layer a forward, and its backward (the
-# positions' gradient) in the source's only, as CenterRefine's head
+# positions' gradient) in the source's only, as CenterRefine's head.
+# --cluster_sampling random draws the proposals' seeds: no vote FPS (SA1-SA4
+# only), the vote clustering's ball query and grouping as under vote_fps
 PER_FORWARD = {"plain": (5, 5, 5), "da": (5, 5, 5), "da_jitter": (5, 6, 6),
                "gf": (4, 4, 4), "gf_da": (4, 4, 4),
                "gf_da_jitter": (4, 5, 5), "boxnet": (5, 5, 5),
-               "da_jitter2": (5, 6, 6), "cam": (4, 4, 4)}
+               "da_jitter2": (5, 6, 6), "cam": (4, 4, 4),
+               "random": (4, 5, 5), "da_random": (4, 5, 5)}
 BACKWARDS_PER_STEP = {"plain": 4, "da": 8, "da_jitter": 9, "gf": 3,
                       "gf_da": 6, "gf_da_jitter": 7, "boxnet": 4,
-                      "da_jitter2": 9, "cam": 0}
+                      "da_jitter2": 9, "cam": 0, "random": 4,
+                      "da_random": 8}
 # the checkpoint gate: the JAX package's scores of lad_f32 on the 100-scan
 # shapefix val (subset FPS over 8192 candidates, 3 subsample seeds;
 # evidence/round5/r5_ladeval_f32.out), mean and its own spread per IoU
@@ -320,8 +363,19 @@ GATES_BF16 = {
     "lad_t1": ("evidence/round4/ckpt/lad_t1.tar.gz", 1,
                {0.25: (0.7265, 0.0044, (0.7311, 0.7259, 0.7224)),
                 0.5: (0.4541, 0.0133, (0.4601, 0.4633, 0.4389))}),
+    "lad_t4": ("evidence/round4/ckpt/lad_t4.tar.gz", 4,
+               {0.25: (0.7633, 0.0140, (0.7684, 0.7742, 0.7475)),
+                0.5: (0.5134, 0.0078, (0.5190, 0.5167, 0.5045))}),
 }
 GATE_BF16_BAND = 2
+# a gate's second term: how far the JAX package's own score moves from its
+# TPU to IEEE float32 on a CPU (the same flags, 3 seeds, the 100-scan val,
+# the JAX package's evaluate on a CPU host; ROADMAP §C.10): the JAX CPU
+# mean by IoU, its distance from the TPU mean added to the band. Only
+# where it was measured: the other gates have no such term
+GATE_PLATFORM = {
+    "lad_t4": {0.25: 0.7681, 0.5: 0.5210},
+}
 RECAL_BATCHES = 20  # --bn_recal_batches' default with --bf16
 # the GroupFree3D learning check: the JAX package's run of GF FSB on the
 # shapefix train split (evidence/round5/gflad/f32_config.json), its
@@ -1518,6 +1572,189 @@ def da_step_phase(scans, virtual, cfg, header):
     return out
 
 
+def _rows(log):
+    """A run's metrics.jsonl without its wall-clock fields."""
+    return [{k: v for k, v in json.loads(line).items()
+             if "sec" not in k and "time" not in k}
+            for line in (log / "metrics.jsonl").read_text().splitlines()]
+
+
+def random_sampling_phase(scans, virtual, tmp, counters):
+    """``[cluster sampling random]``: ``votenet_fsb.main --cluster_sampling
+    random`` (one epoch of 2 steps and an evaluation over the 16 scans,
+    B=8, N=40000, 8192 candidates) twice with --seed 0 and once with 1,
+    and ``votenet_br.main`` with it (2 steps of 8 + 8 scenes and an
+    evaluation). Every forward's draws are read at the proposal module: a
+    step's must be those of ``common.draw_generator`` at (seed, step), a
+    DA step's source and target at (seed, step, 0) and (seed, step, 1),
+    every evaluation batch's at (0,); the two seed-0 runs bitwise equal
+    (losses, evaluations, draws), seed 1's draws other. Launches a
+    forward: FPS 4 (SA1-SA4, no vote FPS), ball query and fused grouping
+    5; 4 grouping backwards a step (8 a DA step). Returns the launches and
+    the shapes (`ShapeLog`) of random_fsb and random_br."""
+    import torch
+
+    from backtoreality_tpu_torch.train import (common, votenet, votenet_br,
+                                               votenet_fsb)
+
+    tmp = pathlib.Path(tmp)
+    steps = NUM_SCANS // B
+    evals = math.ceil(NUM_SCANS / B)
+    base = ["--data_root", str(scans), "--train_split", "all",
+            "--val_split", "all", "--device", "cuda", "--num_point", str(N),
+            "--batch_size", str(B), "--fps_candidates", "8192",
+            "--max_epoch", "1", "--eval_freq", "1", "--cluster_sampling",
+            "random"]
+
+    def expected(got, *key):
+        """What the generator of `key` draws where `got` was drawn."""
+        return torch.randint(0, 1024, got.shape, device=got.device,
+                             dtype=torch.int32,
+                             generator=common.draw_generator(got.device,
+                                                             *key))
+
+    launches, shapes, draws = {}, {}, {}
+    build = votenet.build_model
+    for name, entry, seed, kind in (
+            ("random_fsb", votenet_fsb, 0, "random"),
+            ("random_fsb_again", votenet_fsb, 0, "random"),
+            ("random_fsb_seed1", votenet_fsb, 1, "random"),
+            ("random_br", votenet_br, 0, "da_random")):
+        seen = draws[name] = []
+
+        def recorded(*args, **kwargs):
+            model = build(*args, **kwargs)
+            model.pnet.register_forward_hook(
+                lambda mod, a, out: seen.append(
+                    (mod.training, out["aggregated_vote_inds"].clone())))
+            return model
+
+        log = tmp / f"{name}_log"
+        args = base + ["--log_dir", str(log), "--seed", str(seed)]
+        if kind == "da_random":
+            args += ["--source_data_root", str(virtual)]
+        votenet.build_model = recorded
+        reset(counters)
+        t0 = time.perf_counter()
+        try:
+            with ShapeLog() as shape_log:
+                entry.main(args)
+            torch.cuda.synchronize()
+        finally:
+            votenet.build_model = build
+        secs = time.perf_counter() - t0
+        launches[name] = read_counts(counters)
+        shapes[name] = shape_log.shapes
+        da = kind == "da_random"
+        forwards = (2 * steps if da else steps) + evals
+        check_counts(name, launches[name], kind, forwards, steps)
+        train = [inds for training, inds in seen if training]
+        evaluation = [inds for training, inds in seen if not training]
+        keys = ([(seed, i, d) for i in range(steps) for d in (0, 1)] if da
+                else [(seed, i) for i in range(steps)])
+        require(len(train) == len(keys) and all(
+            torch.equal(got, expected(got, *key))
+            for got, key in zip(train, keys)), f"{name}: the steps' draws"
+            f" are not the generator's of {keys}")
+        require(len(evaluation) == evals and all(
+            torch.equal(got, expected(got, 0)) for got in evaluation),
+            f"{name}: the evaluation batches' draws are not (0,)'s")
+        rows = _rows(log)
+        require(all(math.isfinite(v) for r in rows for k, v in r.items()
+                    if k in ("loss", "mAP")), f"{name}: {rows}")
+        print(f"[cluster sampling random] {entry.__name__.split('.')[-1]}"
+              f".main --seed {seed}: {steps} steps + one evaluation in"
+              f" {secs:.1f} s; launches {launches[name]}; draws of the"
+              f" steps {keys} and of {evals} evaluation batches (0,) as"
+              f" the generators give them; loss"
+              f" {[r['loss'] for r in rows if 'loss' in r]}, mAP@0.25"
+              f" {[r['mAP'] for r in rows if 'mAP' in r]}")
+    same = (_rows(tmp / "random_fsb_log") == _rows(tmp / "random_fsb_again_log")
+            and all(torch.equal(a[1], b[1]) for a, b in
+                    zip(draws["random_fsb"], draws["random_fsb_again"])))
+    other = not torch.equal(draws["random_fsb"][0][1],
+                            draws["random_fsb_seed1"][0][1])
+    print(f"[cluster sampling random] two runs of --seed 0 bitwise equal:"
+          f" {same}; --seed 1 draws other seeds: {other}")
+    require(same and other, "cluster sampling random: seeded runs differ,"
+            " or seeds draw alike")
+    return ({k: launches[k] for k in ("random_fsb", "random_br")},
+            {k: shapes[k] for k in ("random_fsb", "random_br")})
+
+
+def jitter_diag_phase(scans, tmp, cfg, counters, header):
+    """``[jitter_diag]``: ``tools/jitter_diag.py`` on the checkpoint and
+    ``config.json`` that `recipe_phase`'s ``votenet_br_center_refine.main``
+    wrote, over its target scans, on the card: `objects` must equal the
+    valid boxes of those scans (counted here through the dataset), every
+    field finite, and each batch launch as the CenterRefine graph's
+    forward (5 FPS, 6 ball queries, 6 fused groupings). Returns the
+    launches and the shapes (`ShapeLog`)."""
+    from backtoreality_tpu_torch.data.dataset import DetectionDataset
+    from backtoreality_tpu_torch.tools import jitter_diag
+
+    log = pathlib.Path(tmp) / "br_center_refine_log"
+    flags = json.loads((log / "config.json").read_text())
+    reset(counters)
+    t0 = time.perf_counter()
+    with ShapeLog() as shape_log:
+        out = jitter_diag.main([
+            "--ckpt", str(log / "train_BR_CenterRefine.tar"), "--config",
+            str(log / "config.json"), "--data_root", str(scans)])
+    secs = time.perf_counter() - t0
+    launches = read_counts(counters)
+    batches = NUM_SCANS // flags["batch_size"]  # the tool drops a remainder
+    check_counts("jitter_diag", launches, "da_jitter", batches, 0)
+    ds = DetectionDataset(cfg, scans, split="all",
+                          num_points=flags["num_point"], use_height=True,
+                          center_jitter=flags["center_jitter"])
+    valid = sum(int(ds.get(i)["box_label_mask"].sum())
+                for i in range(batches * flags["batch_size"]))
+    print(f"[jitter_diag] the CenterRefine checkpoint over {NUM_SCANS}"
+          f" target scans in {secs:.1f} s: {out}; {valid} valid boxes;"
+          f" launches {launches}  | {header}")
+    require(out["objects"] == valid and all(
+        math.isfinite(v) for v in out.values()),
+        f"jitter_diag: {out}, {valid} valid boxes")
+    return launches, shape_log.shapes
+
+
+def mfu_phase(counters, header):
+    """``[mfu]``: ``tools/mfu.py`` on the card for VoteNet (B=8, N=40000,
+    no height feature, 8192 candidates, Adam at 1e-3) and GroupFree3D
+    (B=8, N=50000, 6 decoder layers, 8192 candidates, AdamW in two groups,
+    clip 0.1), each over its counted step, a warm-up and MFU_ITERS timed
+    steps; their JSON lines printed, each share of the card's peaks in
+    (0, 100], the launches of every step checked. Returns the launches,
+    the shapes (`ShapeLog`) and the two lines."""
+    from backtoreality_tpu_torch.tools import mfu
+
+    launches, shapes, lines = {}, {}, {}
+    for model, kind in (("votenet", "plain"), ("gf", "gf")):
+        path = f"mfu_{model}"
+        reset(counters)
+        t0 = time.perf_counter()
+        with ShapeLog() as shape_log:
+            lines[model] = out = mfu.measure(model, MFU_ITERS, 8192,
+                                             device="cuda")
+        secs = time.perf_counter() - t0
+        launches[path] = read_counts(counters)
+        shapes[path] = shape_log.shapes
+        steps = MFU_ITERS + 2  # the counted step and the warm-up
+        check_counts(path, launches[path], kind, steps, steps)
+        shares = {k: out.get(k) for k in ("pct_of_f32_peak",
+                                          "pct_of_bf16_peak",
+                                          "pct_of_hbm_peak")}
+        print(f"[mfu] {model}: {out['flops_per_step'] / 1e9:.1f} GFLOP and"
+              f" {out['bytes_per_step'] / 1e9:.2f} GB a step of"
+              f" {out['step_ms']:.3f} ms: {out['achieved_tflops']:.3f}"
+              f" TFLOP/s, {out['achieved_gbs']:.1f} GB/s; shares {shares}"
+              f" ({secs:.1f} s)  | {header}")
+        require(all(v is not None and 0 < v <= 100 for v in shares.values()),
+                f"mfu {model}: shares {shares}")
+    return launches, shapes, lines
+
+
 def check_half_refused(xyz, feats, ctr, fps, bq, grouping, counters):
     """Every kernel's wrapper raises on bfloat16 and float16 inputs, and
     launches nothing: a bfloat16 path must promote to float32 itself."""
@@ -1731,37 +1968,117 @@ def gate_phase(tmp, counters):
           f" {time.perf_counter() - t0:.1f} s")
     reset(counters)
     t0 = time.perf_counter()
-    results = evaluate.main([
-        "--model", "votenet", "--checkpoint_path",
-        str(ROOT / GATE_CHECKPOINT), "--data_root", str(val), "--split",
-        "all", "--num_point", "20000", "--num_target", "256",
-        "--batch_size", "8", "--eval_seeds", "3", "--fps_candidates", "8192",
-        "--device", "cuda"])
+    with APMatching() as matching:
+        results = evaluate.main([
+            "--model", "votenet", "--checkpoint_path",
+            str(ROOT / GATE_CHECKPOINT), "--data_root", str(val), "--split",
+            "all", "--num_point", "20000", "--num_target", "256",
+            "--batch_size", "8", "--eval_seeds", "3", "--fps_candidates",
+            "8192", "--device", "cuda"])
     secs = time.perf_counter() - t0
     check_counts("checkpoint gate", read_counts(counters), "plain",
                  3 * math.ceil(100 / 8), 0)
     print(f"[checkpoint gate] subset FPS 8192: evaluate.main, 3 seeds over"
-          f" 100 scans, in {secs:.1f} s")
+          f" 100 scans, in {secs:.1f} s; {matching.native} calls of the"
+          " native IoU")
+    require(matching.native > 0, "checkpoint gate: AP matching did not"
+            " go through the native IoU")
     gate_check("checkpoint gate", results, GATE, 1)
-    return val
+    return val, matching.calls
 
 
-def gate_check(label, results, table, band):
+class APMatching:
+    """Within (``with APMatching() as m``): `m.calls` records what every
+    ``APCalculator.compute_metrics`` matches (its predictions, ground
+    truth and IoU threshold), and `m.native` counts the calls of the
+    native IoU library (``eval.native.box3d_iou_matrix``, as
+    ``eval_det`` reaches it)."""
+
+    def __enter__(self):
+        from backtoreality_tpu_torch.eval import ap_helper, native
+
+        self.calls, self.native = [], 0
+        self._compute = ap_helper.APCalculator.compute_metrics
+        self._iou = native.box3d_iou_matrix
+        compute, iou = self._compute, self._iou
+
+        def recorded(calc):
+            self.calls.append((dict(calc.pred_map_cls),
+                               dict(calc.gt_map_cls), calc.ap_iou_thresh))
+            return compute(calc)
+
+        def counted(*args):
+            self.native += 1
+            return iou(*args)
+
+        ap_helper.APCalculator.compute_metrics = recorded
+        native.box3d_iou_matrix = counted
+        return self
+
+    def __exit__(self, *exc):
+        from backtoreality_tpu_torch.eval import ap_helper, native
+
+        ap_helper.APCalculator.compute_metrics = self._compute
+        native.box3d_iou_matrix = self._iou
+
+
+def native_eval_phase(calls, header):
+    """``[native eval]``: the AP matching of the lad_f32 gate (every seed's
+    and IoU's predictions and ground truth, as `gate_phase` recorded them)
+    timed on the card's host through the native IoU library and through
+    the Python per-pair loop (a ``get_iou_func`` that is not
+    ``get_iou_obb``); fails unless every class's AP agrees within 1e-9."""
+    from backtoreality_tpu_torch.eval.box3d import get_iou_obb
+    from backtoreality_tpu_torch.eval.eval_det import eval_det
+
+    def python_iou(a, b):
+        return get_iou_obb(a, b)
+
+    secs, aps = {}, {}
+    for name, fn in (("native", get_iou_obb), ("python", python_iou)):
+        t0 = time.perf_counter()
+        aps[name] = [eval_det(pred, gt, ovthresh=t, get_iou_func=fn)[2]
+                     for pred, gt, t in calls]
+        secs[name] = time.perf_counter() - t0
+    worst, classes = 0.0, 0
+    for nat, py in zip(aps["native"], aps["python"]):
+        require(set(nat) == set(py), "native eval: classes differ")
+        for c in nat:
+            worst = max(worst, abs(nat[c] - py[c]))
+            classes += 1
+    dets = sum(len(d) for pred, _, _ in calls for d in pred.values())
+    print(f"[native eval] lad_f32's AP matching, {len(calls)} calculators"
+          f" (3 seeds x 2 IoUs, {dets} detections): native"
+          f" {secs['native']:.3f} s, Python loop {secs['python']:.3f} s"
+          f" ({secs['python'] / secs['native']:.1f}x); {classes} class APs,"
+          f" largest difference {worst:.3g}  | {header}")
+    require(worst <= 1e-9, f"native eval: AP differs by {worst}")
+    return secs
+
+
+def gate_check(label, results, table, band, platform=None):
     """Each IoU's 3-seed mean mAP against the JAX package's mean: within
-    `band` times its spread, the seeds printed side by side."""
+    `band` times its spread, plus, where `platform` gives the JAX
+    package's own mean on a CPU at that IoU, the distance of that mean
+    from the TPU's; the seeds and both terms printed."""
     failed = []
     for t, (mean, spread, seeds) in table.items():
         got = results[("", t)]
         card = [r["mAP"] for r in got["seeds"]]
-        allowed = band * spread
+        shift = 0.0 if platform is None else abs(platform[t] - mean)
+        allowed = band * spread + shift
         within = abs(got["mAP"] - mean) <= allowed
         jax_seeds = " / ".join(f"{v:.4f}" for v in seeds)
+        terms = (f"{band} x the spread ({band * spread:.4f})"
+                 if platform is None else
+                 f"{band} x the spread {band * spread:.4f} + the JAX"
+                 f" package's TPU -> CPU shift {shift:.4f} (its CPU"
+                 f" {platform[t]:.4f}) = {allowed:.4f}")
         print(f"  mAP@{t}: card {got['mAP']:.4f} (seeds "
               + " / ".join(f"{v:.4f}" for v in card)
               + f"), JAX package {mean:.4f} +/- {spread} (seeds"
               f" {jax_seeds}): gap {abs(got['mAP'] - mean):.5f},"
-              f" {'within' if within else 'OUTSIDE'} {band} x the spread"
-              f" ({allowed:.4f})")
+              f" {'within' if within else 'OUTSIDE'} {terms}")
         if not within:
             failed.append(f"mAP@{t} {got['mAP']:.5f} not within"
                           f" {allowed:.4f} of {mean}")
@@ -1774,9 +2091,10 @@ def gate_bf16_phase(val, tmp, counters, lap):
     --f32_tail N`` after 20 batches of BN recalibration on the shapefix
     train split (the port's ``write_shapefix_train``, written once), over
     3 subsample seeds of the 100-scan val of `gate_phase`, for lad_t2 (N
-    2) and lad_t1 (1). Fails unless each IoU's mean lies within
-    GATE_BF16_BAND spreads of the JAX package's; `lap` closes a phase a
-    checkpoint."""
+    2), lad_t1 (1) and lad_t4 (4). Fails unless each IoU's mean lies
+    within GATE_BF16_BAND spreads of the JAX package's, plus for lad_t4
+    the JAX package's own shift from its TPU to a CPU (GATE_PLATFORM);
+    `lap` closes a phase a checkpoint."""
     from backtoreality_tpu_torch.datagen.shapefix import write_shapefix_train
     from backtoreality_tpu_torch.train import evaluate
 
@@ -1789,20 +2107,25 @@ def gate_bf16_phase(val, tmp, counters, lap):
         label = f"checkpoint gate {name}"
         reset(counters)
         t0 = time.perf_counter()
-        results = evaluate.main([
-            "--model", "votenet", "--checkpoint_path", str(ROOT / checkpoint),
-            "--bf16", "--f32_tail", str(tail), "--train_data_root",
-            str(root / "train"), "--recal_split", "all", "--data_root",
-            str(val), "--split", "all", "--num_point", "20000",
-            "--num_target", "256", "--batch_size", "8", "--eval_seeds", "3",
-            "--fps_candidates", "8192", "--device", "cuda"])
+        with APMatching() as matching:
+            results = evaluate.main([
+                "--model", "votenet", "--checkpoint_path",
+                str(ROOT / checkpoint), "--bf16", "--f32_tail", str(tail),
+                "--train_data_root", str(root / "train"), "--recal_split",
+                "all", "--data_root", str(val), "--split", "all",
+                "--num_point", "20000", "--num_target", "256",
+                "--batch_size", "8", "--eval_seeds", "3",
+                "--fps_candidates", "8192", "--device", "cuda"])
         secs = time.perf_counter() - t0
         check_counts(label, read_counts(counters), "plain",
                      RECAL_BATCHES + 3 * math.ceil(100 / 8), 0)
         print(f"[{label}] --bf16 --f32_tail {tail}, {RECAL_BATCHES}"
               f" recalibration batches, 3 seeds over 100 scans, in"
-              f" {secs:.1f} s")
-        gate_check(label, results, table, GATE_BF16_BAND)
+              f" {secs:.1f} s; {matching.native} calls of the native IoU")
+        require(matching.native > 0, f"{label}: AP matching did not go"
+                " through the native IoU")
+        gate_check(label, results, table, GATE_BF16_BAND,
+                   GATE_PLATFORM.get(name))
         lap(label)
 
 
@@ -2260,6 +2583,9 @@ def gf_kernel_phase(scans, cfg, fps, bq, grouping):
           " forward")
     fps_rec = check_fps("gf_sa1", xyz, 2048, fps, reps=3, others=True,
                         want_cluster=True)
+    # tools/mfu.py runs GF with 8192 candidates at SA1
+    cand_rec = check_fps("gf_candidates8192", xyz, 2048, fps, reps=3,
+                         candidates=8192)
     bq_rec = check_bq("gf_sa1", xyz, ctr, 0.2, 64, bq, reps=5)
     check_bq_tiles("gf_sa1", xyz, ctr, 0.2, 64, bq)
     fps_rec["paths"] = bq_rec["paths"] = GF_PATHS
@@ -2307,7 +2633,8 @@ def gf_kernel_phase(scans, cfg, fps, bq, grouping):
                               bq, grouping, reps=5)
     for rec in rank_recs + [fwd, local]:
         rec["paths"] = ("dp_gf_fsb",)
-    return ([fps_rec, rank_recs[0]], [bq_rec, ctjt_bq, rank_recs[1]],
+    return ([fps_rec, cand_rec, rank_recs[0]],
+            [bq_rec, ctjt_bq, rank_recs[1]],
             group_recs + [fwd], local_recs + [ctjt_fwd, local], [ctjt_bwd])
 
 
@@ -3065,44 +3392,95 @@ def parity_pairs_phase(tmp, inits, counters, header):
     return launches
 
 
-def start_pairs(tmp, inits):
-    """The parity pairs (`parity_pairs_phase`) in a process of their own
-    (``chip_smoke.py --parity_pairs DIR``), to run beside the phases that
-    time no step: the learning check and ``[datagen -> br]``. The pairs'
-    numbers do not depend on what runs beside them; their walls do."""
+def start_child(tmp, name, payload):
+    """Phase `name` of CHILDREN in a process of its own (``chip_smoke.py
+    --child NAME DIR``, DIR holding `payload` as input.json), to run
+    beside the phases that time no step: the learning check and
+    ``[datagen -> br]``. Its numbers do not depend on what runs beside it;
+    its wall does."""
     import atexit
 
-    root = pathlib.Path(tmp) / "pairs_run"
+    root = pathlib.Path(tmp) / f"{name}_run"
     root.mkdir()
-    (root / "inits.json").write_text(json.dumps(
-        {k: str(v) for k, v in inits.items()}))
-    log = open(root / "pairs.log", "w+")
+    (root / "input.json").write_text(json.dumps(payload))
+    log = open(root / f"{name}.log", "w+")
     proc = subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--parity_pairs",
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--child", name,
          str(root)], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
     # stopped with the smoke, whatever ends it
     atexit.register(lambda: proc.poll() is None and proc.kill())
-    return dict(proc=proc, log=log, root=root, start=time.perf_counter())
+    return dict(name=name, proc=proc, log=log, root=root,
+                start=time.perf_counter())
 
 
-def finish_pairs(job):
-    """The pairs' process to its end (PAIRS_TIMEOUT from its start), its
-    output printed; fails on a nonzero exit. Returns the launches by
-    pair."""
-    left = PAIRS_TIMEOUT - (time.perf_counter() - job["start"])
+def finish_child(job, timeout):
+    """A child's process to its end (`timeout` seconds from its start),
+    its output printed; fails on a nonzero exit. Returns what the phase
+    returned (output.json)."""
+    left = timeout - (time.perf_counter() - job["start"])
     try:
         rc = job["proc"].wait(timeout=max(left, 1.0))
     except subprocess.TimeoutExpired:
         job["proc"].kill()
         job["proc"].wait()
-        rc = f"killed at its {PAIRS_TIMEOUT} s"
+        rc = f"killed at its {timeout} s"
     job["log"].seek(0)
     print(job["log"].read().rstrip())
     job["log"].close()
     secs = time.perf_counter() - job["start"]
-    print(f"[parity pairs] their process: {secs:.1f} s from start to exit")
-    require(rc == 0, f"the parity pairs' process exited {rc}")
-    return json.loads((job["root"] / "launches.json").read_text())
+    print(f"[{job['name']}] its process ended within {secs:.1f} s of its"
+          " start")
+    require(rc == 0, f"the {job['name']} process exited {rc}")
+    return json.loads((job["root"] / "output.json").read_text())
+
+
+def run_child(name, root, counters, header):
+    """In the child process: phase `name` on root/input.json, its result
+    written to root/output.json."""
+    payload = json.loads((root / "input.json").read_text())
+    if name == "pairs":
+        inits = {k: pathlib.Path(v) for k, v in payload["inits"].items()}
+        out = parity_pairs_phase(root, inits, counters, header)
+    elif name == "preemption":
+        out = preemption_phase(pathlib.Path(payload["scans"]), root, header)
+    elif name == "gf_sweep":
+        out = gf_sweep_phase(payload["scans"], root, counters, header)
+    else:
+        raise SystemExit(f"chip_smoke: no child phase {name!r}")
+    (root / "output.json").write_text(json.dumps(out))
+
+
+def gf_sweep_phase(scans, root, counters, header):
+    """``[gf sweep]`` (a child): ``tools/gf_sweep.py --seeds 0 --candidates
+    8192 --max_epoch 2 --num_point 20000`` on the 16 GF scans (train and
+    val), B=8, 2 decoder layers: two lines, the exact arm first, with
+    finite scores; the launches of its 8 steps and 4 evaluation batches
+    (4/4/4 a forward, 3 backwards a step). Returns the lines and the
+    launches."""
+    from backtoreality_tpu_torch.tools import gf_sweep
+
+    reset(counters)
+    t0 = time.perf_counter()
+    gf_sweep.main(["--data_root", scans, "--val_data_root", scans, "--out",
+                   str(root / "out"), "--seeds", "0", "--candidates",
+                   "8192", "--max_epoch", "2", "--num_point", "20000"])
+    secs = time.perf_counter() - t0
+    launches = read_counts(counters)
+    lines = [json.loads(line) for line in
+             (root / "out" / "sweep.jsonl").read_text().splitlines()]
+    steps = 2 * 2 * (NUM_SCANS // B)  # two arms of two epochs
+    check_counts("gf sweep", launches, "gf",
+                 steps + 2 * math.ceil(NUM_SCANS / B), steps)
+    print(f"[gf sweep] 2 arms x 2 epochs over {NUM_SCANS} scans at"
+          f" N=20000 in {secs:.1f} s; launches {launches}  | {header}")
+    for rec in lines:
+        print(f"  {json.dumps(rec)}")
+    require([r["fps_candidates"] for r in lines] == [None, 8192]
+            and all(math.isfinite(r[k]) for r in lines
+                    for k in ("mAP@0.25", "AR@0.25", "mAP@0.50",
+                              "AR@0.50")),
+            f"gf sweep: {lines}")
+    return dict(lines=lines, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -4194,17 +4572,17 @@ def dp_phase(scans, virtual, gf_scans, tmp, counters, header):
     return paths
 
 
-def preemption_phase(scans, gf_scans, tmp, header):
-    """``[preemption]``: ``votenet_fsb`` in a process of its own with
-    ``--guard_every_steps 1`` (B=8: 2 steps an epoch, 30 epochs), sent
-    SIGTERM once its first checkpoint is written: it must exit with 143
-    having written the guard's newest snapshot, saved as the last epoch
-    it completed (E), after 2E + 2 to 2E + 4 steps (a snapshot after a
-    step of epoch E + 1 counts as epoch E: a resume re-runs that epoch);
-    its parameters must equal bitwise the state after as many steps
-    replayed here (the steps are deterministic); ``--resume`` then re-runs
-    epoch E + 1 and finishes. Then the time of one ``guard.update`` for
-    VoteNet's and GroupFree3D's state."""
+def preemption_phase(scans, tmp, header):
+    """``[preemption]`` (a child, beside the learning check): ``votenet_fsb``
+    in a process of its own with ``--guard_every_steps 1`` (B=8: 2 steps
+    an epoch, 30 epochs), sent SIGTERM once its first checkpoint is
+    written: it must exit with 143 having written the guard's newest
+    snapshot, saved as the last epoch it completed (E), after 2E + 2 to
+    2E + 4 steps (a snapshot after a step of epoch E + 1 counts as epoch
+    E: a resume re-runs that epoch); its parameters must equal bitwise the
+    state after as many steps replayed here (the steps are
+    deterministic); ``--resume`` then re-runs epoch E + 1 and finishes.
+    Returns the epoch and steps of the snapshot."""
     import os
     import signal
 
@@ -4212,10 +4590,8 @@ def preemption_phase(scans, gf_scans, tmp, header):
 
     from backtoreality_tpu_torch.data import get_config
     from backtoreality_tpu_torch.data.loader import DetectionDataLoader
-    from backtoreality_tpu_torch.losses import groupfree as gf_losses
     from backtoreality_tpu_torch.losses import votenet as vote_losses
-    from backtoreality_tpu_torch.train import (common, groupfree, votenet,
-                                               votenet_fsb)
+    from backtoreality_tpu_torch.train import common, votenet, votenet_fsb
 
     tmp = pathlib.Path(tmp)
     log = tmp / "preempt"
@@ -4283,9 +4659,29 @@ def preemption_phase(scans, gf_scans, tmp, header):
             and common.load_checkpoint(log / "checkpoint.tar")["epoch"]
             == epoch + 1, f"preemption: --resume exited {rc}:\n{out[-3000:]}")
     print(f"[preemption] --resume re-ran epoch {epoch + 1} and finished")
+    return dict(epoch=epoch, steps=steps)
 
-    # one guard.update: VoteNet's state (Adam), GroupFree3D's (AdamW)
+
+def guard_phase(scans, gf_scans, tmp, header):
+    """``[preemption] guard.update``: the time of one ``guard.update`` (a
+    host snapshot of the model and optimizer, the step's pause) for
+    VoteNet's state at the bench configuration (Adam, one step taken) and
+    GroupFree3D's at its CLI defaults (AdamW, one step taken)."""
+    import torch
+
+    from backtoreality_tpu_torch.data import get_config
+    from backtoreality_tpu_torch.losses import groupfree as gf_losses
+    from backtoreality_tpu_torch.losses import votenet as vote_losses
+    from backtoreality_tpu_torch.train import common, groupfree, votenet
+
     cfg = get_config("scannet_md40")
+    flags = votenet.add_common_flags(argparse.ArgumentParser()).parse_args(
+        ["--fps_candidates", "8192"])
+    torch.manual_seed(0)
+    model = votenet.build_model(flags, cfg).cuda()
+    opt = common.make_optimizer(model.parameters(), "adam", lr0=1e-3)
+    votenet.make_train_step(model, opt, vote_losses.get_loss, cfg)(
+        first_batch(cfg, scans, "all"), 0.5)
     gflags = gf_flags()
     torch.manual_seed(0)
     gf = groupfree.build_model(gflags, cfg).cuda()
@@ -4293,7 +4689,7 @@ def preemption_phase(scans, gf_scans, tmp, header):
     groupfree.make_train_step(gf, gopt, gf_losses.get_loss, cfg,
                               groupfree.loss_kwargs(gflags))(
         gf_first_batch(gf_scans, cfg, use_height=False), gflags.bn_momentum)
-    guard = common.PreemptionGuard(tmp / "guard.tar")
+    guard = common.PreemptionGuard(pathlib.Path(tmp) / "guard.tar")
     try:
         for label, m, o in (("VoteNet", model, opt), ("GroupFree3D", gf,
                                                       gopt)):
@@ -4359,11 +4755,11 @@ def main() -> int:
                         help="stop after the kernels' checks and times"
                              " (phases 1 and 2): for comparing two trees"
                              " in one run, not a pass")
-    parser.add_argument("--parity_pairs", metavar="DIR",
-                        help="run only the parity pairs, with the imported"
-                             " inits DIR/inits.json names, writing their"
-                             " launches to DIR/launches.json (the full run"
-                             " starts this in a process of its own)")
+    parser.add_argument("--child", nargs=2, metavar=("NAME", "DIR"),
+                        help="run only phase NAME (pairs, preemption or"
+                             " gf_sweep) on DIR/input.json, writing what"
+                             " it returns to DIR/output.json (the full run"
+                             " starts these in processes of their own)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -4396,12 +4792,9 @@ def main() -> int:
     device = torch.device("cuda")
     kernels = (fps.KERNEL, bq.KERNEL, grouping.KERNEL)
     counters = kernels + (grouping.LOCALIZE,)
-    if args.parity_pairs:
-        root = pathlib.Path(args.parity_pairs)
-        inits = {k: pathlib.Path(v) for k, v in
-                 json.loads((root / "inits.json").read_text()).items()}
-        launches = parity_pairs_phase(root, inits, counters, header)
-        (root / "launches.json").write_text(json.dumps(launches))
+    if args.child:
+        run_child(args.child[0], pathlib.Path(args.child[1]), counters,
+                  header)
         return 0
 
     # each phase's seconds, printed at the end
@@ -4556,9 +4949,14 @@ def main() -> int:
         if bwd is not None:
             bwd["paths"] = on
             local_bwd.append(bwd)
-    # without features: the coordinates alone
+    # without features: the coordinates alone; at SA1 as tools/mfu.py's
+    # VoteNet (no height feature) runs it
     _, x, _, c, r, s = sa_calls[2]
     check_localize("sa3_xyz_only", x, None, c, r, s, bq, grouping, reps=0)
+    _, x, _, c, r, s = sa_calls[0]
+    fwd, _ = check_localize("sa1_xyz_only", x, None, c, r, s, bq, grouping,
+                            reps=3)
+    local_fwd.append(fwd)
     check_half_refused(ep["sa1_xyz"], ep["sa1_features"], ep["sa2_xyz"],
                        fps, bq, grouping, counters)
     # the exact query's shapes: those of the five layers
@@ -4637,13 +5035,25 @@ def main() -> int:
                           floor_points=8000)
     paths.update(recipe_phase(scans, virtual, tmp.name, counters))
     lap("votenet recipes")
+    paths["jitter_diag"], shapes = jitter_diag_phase(scans, tmp.name, cfg,
+                                                     counters, header)
+    tool_shapes = {"jitter_diag": shapes}
+    lap("jitter_diag")
+    launches, shapes = random_sampling_phase(scans, virtual, tmp.name,
+                                             counters)
+    paths.update(launches)
+    tool_shapes.update(shapes)
+    lap("cluster sampling random")
     da_step_phase(scans, virtual, cfg, header)
     lap("votenet da steps")
     paths["training_bf16"] = bf16_phase(scans, tmp.name, cfg, counters,
                                         header, fsb_f32, fps, bq, grouping)
     lap("votenet bf16")
-    val = gate_phase(tmp.name, counters)
+    val, matching = gate_phase(tmp.name, counters)
     lap("checkpoint gate")
+    native_eval_phase(matching, header)
+    del matching
+    lap("native eval")
     gate_bf16_phase(val, tmp.name, counters, lap)
     (surface, shapes, surface_bq, surface_fwd, surface_bwd,
      boxnet_step) = model_surface_phase(scans, virtual, cfg, counters,
@@ -4652,11 +5062,17 @@ def main() -> int:
     bq_records += surface_bq
     local_fwd += surface_fwd
     local_bwd += surface_bwd
-    tag_paths(shapes, {
+    records = {
         "fps": fps_records, "ball_query": bq_records, "localize": local_fwd,
         "localize_backward": local_bwd, "group": group_fwd,
-        "group_backward": group_bwd})
+        "group_backward": group_bwd}
+    tag_paths(shapes, records)
     lap("model surface")
+    launches, shapes, _ = mfu_phase(counters, header)
+    paths.update(launches)
+    tool_shapes.update(shapes)
+    tag_paths(tool_shapes, records)
+    lap("mfu")
 
     # 7. GroupFree3D: serving, FSB and WSB, and the learning check
     paths["gf_serving"] = gf_serving_phase(gf_scans, tmp.name, cfg, counters,
@@ -4696,22 +5112,29 @@ def main() -> int:
     # the round-5 parity pairs and [datagen -> br]'s syntheses in processes
     # of their own, beside the learning check and votenet_br on the
     # syntheses, which time no step
-    pairs = start_pairs(tmp.name, inits)
+    pairs = start_child(tmp.name, "pairs", {"inits": {
+        k: str(v) for k, v in inits.items()}})
     datagen = start_datagen(tmp.name)
+    preemption = start_child(tmp.name, "preemption", {"scans": str(scans)})
+    sweep = start_child(tmp.name, "gf_sweep", {"scans": str(gf_scans)})
     lap("datagen start")
     gf_learning_check(tmp.name, counters)
     lap("gf learning check")
     paths.update(datagen_br_phase(datagen, tmp.name, counters, header))
     lap("datagen br")
-    paths.update(finish_pairs(pairs))
+    paths["gf_sweep"] = finish_child(sweep, SWEEP_TIMEOUT)["launches"]
+    lap("gf sweep")
+    paths.update(finish_child(pairs, PAIRS_TIMEOUT))
     lap("parity pairs")
+    finish_child(preemption, PREEMPTION_TIMEOUT)
+    lap("preemption")
 
-    # 10. data parallelism, the preemption guard and the profiler window
+    # 10. data parallelism, the guard's snapshot time, the profiler window
     paths.update(dp_phase(scans, virtual, gf_scans, tmp.name, counters,
                           header))
     lap("data parallel")
-    preemption_phase(scans, gf_scans, tmp.name, header)
-    lap("preemption")
+    guard_phase(scans, gf_scans, tmp.name, header)
+    lap("guard")
     profile_phase(scans, tmp.name)
     lap("profile")
     tmp.cleanup()
@@ -4749,10 +5172,11 @@ def main() -> int:
                                           for k, v in floor.items()}
     for k in kernels_line:
         backward = k["name"].endswith("_backward")
-        surface = SURFACE_TRAINING + (() if backward else SURFACE_SERVING)
+        surface = SURFACE_TRAINING + TOOL_TRAINING + (
+            () if backward else SURFACE_SERVING + TOOL_SERVING)
         require(all(k["launches_by_path"][p] > 0
                     for p in TRAINING + GF_TRAINING + BF16_TRAINING
-                    + DP_PATHS + surface),
+                    + DP_PATHS + surface + ("gf_sweep",)),
                 f"{k['name']}: not launched on every training path")
         checked = {p for r in k["per_shape"] for p in r.get("paths", ())}
         want = set(DP_PATHS + surface)
