@@ -1,8 +1,11 @@
-// Stratified ball query for Hopper (sm_90a), plain C interface.
+// Ball queries for Hopper (sm_90a), plain C interface: the stratified
+// query (`bq_stratified_launch`) and the exact first-k query
+// (`bq_exact_launch`, at the end of the file).
 //
-// Replaces the Pallas TPU kernel `_bq_stratified_kernel` in
-// backtoreality_tpu/ops/ball_query.py, together with the slot-fill and
-// the clamp to n-1 that its wrapper runs in XLA afterwards.
+// The stratified query replaces the Pallas TPU kernel
+// `_bq_stratified_kernel` in backtoreality_tpu/ops/ball_query.py, together
+// with the slot-fill and the clamp to n-1 that its wrapper runs in XLA
+// afterwards.
 //
 // Semantics (those of `_ball_query_stratified_torch` in
 // ops/ball_query.py): the N points are split into `nsample` contiguous
@@ -398,6 +401,163 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
              idx_out, hit_out);
 }
 
+
+// ---------------------------------------------------------------------------
+// The exact first-k query (`_ball_query_exact_torch` in ops/ball_query.py;
+// the JAX package leaves it to XLA, backtoreality_tpu/ops/ball_query.py:71):
+// slot s of a centre takes its (s+1)-th point in index order with
+// |c - p|^2 < r^2; slots past its count take its first hit, and a centre
+// with no hit takes index 0 in every slot.
+//
+// A warp holds a centre; a block holds kExactWarps centres of one batch row,
+// which walk the same points in the same order, so the row's points come
+// from L2 once and from L1 for the others. The warp walks the row 128
+// points at a time, 4 a lane, and a ballot per point of a lane gives the
+// hits; a hit's rank is the count so far plus the hits before it in index
+// order. The warp leaves the row once it has nsample hits (the count is the
+// same in every lane): it tests at most 127 points past the one its last
+// slot takes, and no more than the data needs otherwise. The slots need no
+// staging, so nsample has no limit.
+//
+// What bounds it: the loads from L1. Lane l tests points base + 4 l + u,
+// u < 4, and the ranks count the hits of the lanes below and the lane's own
+// before u. The rows are 3 contiguous values a point (the wrapper copies a
+// strided xyz), so a lane of a 16-byte aligned row reads its 4 points with
+// three 16-byte loads (six in float64). In the chunk past the row's last
+// whole one, and in a misaligned row, it reads them value by value,
+// guarded by n.
+//
+// The radius test is the stratified kernels' in float32 (`inside`, the
+// same operations in the same order), so a centre's first hit is the
+// global first hit those kernels' slot-fill takes, bit for bit; in float64
+// it is the plain version's direct form (dx*dx + dy*dy) + dz*dz < r^2,
+// each product and sum rounded on its own, which it equals bit for bit.
+
+constexpr int kExactWarps = 8;    // centres a block
+constexpr int kExactPerLane = 4;  // points a lane tests between two exits
+constexpr int kExactChunk = 32 * kExactPerLane;
+
+template <typename T>
+struct Ball;
+
+template <>
+struct Ball<float> {
+  float4 q;
+  __device__ Ball(const float* c, double r2) : q(centre_query(c, (float)r2)) {}
+  __device__ __forceinline__ bool contains(float x, float y, float z) const {
+    float d;
+    return inside(q, x, y, z, sq3(x, y, z), d);
+  }
+  // a lane's 4 consecutive points, from a 16-byte aligned address
+  __device__ static void load4(const float* p, float (&v)[12]) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float4 t = __ldg(q + i);
+      v[4 * i] = t.x;
+      v[4 * i + 1] = t.y;
+      v[4 * i + 2] = t.z;
+      v[4 * i + 3] = t.w;
+    }
+  }
+};
+
+template <>
+struct Ball<double> {
+  double cx, cy, cz, r2;
+  __device__ Ball(const double* c, double r2_)
+      : cx(c[0]), cy(c[1]), cz(c[2]), r2(r2_) {}
+  __device__ __forceinline__ bool contains(double x, double y,
+                                           double z) const {
+    const double dx = __dsub_rn(cx, x), dy = __dsub_rn(cy, y),
+                 dz = __dsub_rn(cz, z);
+    return __dadd_rn(__dadd_rn(__dmul_rn(dx, dx), __dmul_rn(dy, dy)),
+                     __dmul_rn(dz, dz)) < r2;
+  }
+  __device__ static void load4(const double* p, double (&v)[12]) {
+    const double2* q = reinterpret_cast<const double2*>(p);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      const double2 t = __ldg(q + i);
+      v[2 * i] = t.x;
+      v[2 * i + 1] = t.y;
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kExactWarps * 32)
+    bq_exact_kernel(const T* __restrict__ xyz, long long xsb,
+                    const T* __restrict__ ctr, long long csb, long long csn,
+                    int n, int m, double r2, int nsample,
+                    int* __restrict__ idx_out,
+                    unsigned long long* __restrict__ counter) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kExactWarps + (threadIdx.x >> 5);
+  if (c >= m) return;  // the whole warp
+  const int b = blockIdx.y;
+  const Ball<T> ball(ctr + b * csb + c * csn, r2);
+  const T* row = xyz + b * xsb;
+  int* out = idx_out + ((long long)b * m + c) * nsample;
+  const unsigned below = (1u << lane) - 1;
+  const bool aligned = reinterpret_cast<uintptr_t>(row) % 16 == 0;
+  int count = 0;  // hits so far, the same in every lane
+  int first = 0;  // the first hit (0 if none)
+  long long tested = 0;
+  for (int base = 0; base < n && count < nsample; base += kExactChunk) {
+    const int at = base + kExactPerLane * lane;
+    const T* p = row + 3LL * at;
+    T v[3 * kExactPerLane];
+    bool in[kExactPerLane];
+    if (aligned && base + kExactChunk <= n) {  // the same in every lane
+      Ball<T>::load4(p, v);
+#pragma unroll
+      for (int u = 0; u < kExactPerLane; ++u)
+        in[u] = ball.contains(v[3 * u], v[3 * u + 1], v[3 * u + 2]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < kExactPerLane; ++u) {
+        in[u] = at + u < n;
+        if (in[u])
+          in[u] = ball.contains(__ldg(p + 3 * u), __ldg(p + 3 * u + 1),
+                                __ldg(p + 3 * u + 2));
+      }
+    }
+    unsigned any = 0;
+    int before = 0, hits = 0;
+#pragma unroll
+    for (int u = 0; u < kExactPerLane; ++u) {
+      const unsigned vote = __ballot_sync(kFull, in[u]);
+      before += __popc(vote & below);
+      hits += __popc(vote);
+      any |= vote;
+    }
+    if (count == 0 && any != 0) {
+      // the lowest lane with a hit holds the first, at its lowest u
+      const int l = __ffs(any) - 1;
+      int u0 = 0;
+#pragma unroll
+      for (int u = kExactPerLane - 1; u >= 0; --u)
+        if (in[u]) u0 = u;
+      first = base + kExactPerLane * l + __shfl_sync(kFull, u0, l);
+    }
+    int rank = count + before;
+#pragma unroll
+    for (int u = 0; u < kExactPerLane; ++u) {
+      if (in[u]) {
+        if (rank < nsample) out[rank] = at + u;
+        ++rank;
+      }
+    }
+    count += hits;
+    tested += min(kExactChunk, n - base);
+  }
+  for (int s = min(count, nsample) + lane; s < nsample; s += 32)
+    out[s] = first;
+  if (counter != nullptr && lane == 0)
+    atomicAdd(counter, (unsigned long long)tested);
+}
+
 }  // namespace
 
 extern "C" {
@@ -468,6 +628,36 @@ int bq_stratified_launch(const float* xyz, long long xsb, long long xsn,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// The exact first-k query. xyz: row b, point i, coordinate k at
+// xyz[b*xsb + 3*i + k]; centres as above, with (csb, csn); float32 (`dbl`
+// 0) or float64 (`dbl` 1), r2 = radius^2 as a double (rounded to float32
+// for float32 inputs); idx (b, m, nsample) int32, contiguous. `counter`,
+// if not null, receives the distance tests executed (added to what it
+// holds).
+//
+// Returns the cudaError_t of the launch (0 on success).
+int bq_exact_launch(const void* xyz, long long xsb, const void* ctr,
+                    long long csb, long long csn, int b, int n, int m,
+                    double r2, int nsample, int dbl, int* idx,
+                    unsigned long long* counter, void* stream) {
+  if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || nsample <= 0 ||
+      (dbl != 0 && dbl != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((m + kExactWarps - 1) / kExactWarps, b);
+  if (dbl)
+    bq_exact_kernel<double><<<grid, kExactWarps * 32, 0, st>>>(
+        static_cast<const double*>(xyz), xsb,
+        static_cast<const double*>(ctr), csb, csn, n, m, r2, nsample, idx,
+        counter);
+  else
+    bq_exact_kernel<float><<<grid, kExactWarps * 32, 0, st>>>(
+        static_cast<const float*>(xyz), xsb,
+        static_cast<const float*>(ctr), csb, csn, n, m, r2, nsample, idx,
+        counter);
   return (int)cudaGetLastError();
 }
 

@@ -3,10 +3,10 @@
 Counterpart of ``backtoreality_tpu/ops``. The ops that the JAX package
 runs as Pallas TPU kernels (furthest point sampling, stratified ball
 query, stratified grouping, the latter also fused with a set-abstraction
-layer's localize step) have hand-written CUDA kernels here, launched for
-CUDA tensors; CPU tensors take each kernel's plain PyTorch version. The
-ops it left to XLA (the exact first-k ball query, gathers, 3-NN, chamfer)
-are plain PyTorch on every device.
+layer's localize step) and the exact first-k ball query, which it leaves
+to XLA, have hand-written CUDA kernels here, launched for CUDA tensors;
+CPU tensors take each kernel's plain PyTorch version. The other ops it
+left to XLA (gathers, 3-NN, chamfer) are plain PyTorch on every device.
 Everything is batched and channels-last.
 """
 

@@ -105,8 +105,9 @@ class Kernel:
 
 
 class Entry:
-    """A further entry into a kernel's library (a second C function over
-    the same device code), with launch counts of its own."""
+    """A further entry into a kernel's library (another C function in the
+    same source), with launch and byte counts of its own: ``bytes`` where
+    its device code is its own, else the kernel's."""
 
     def __init__(self, kernel: Kernel, name: str,
                  replaces: str | None = None):
@@ -115,6 +116,7 @@ class Entry:
         self.replaces = kernel.replaces if replaces is None else replaces
         self.launches = 0
         self.backward_launches = 0
+        self.bytes = 0
 
 
 def build_all(kernels) -> dict[str, str]:

@@ -25,10 +25,17 @@ The plain version sums ``c.p`` by a matrix product, so it can disagree
 with the kernels only on points within rounding error of the radius.
 
 The exact first-k query of the reference, :func:`ball_query`
-(``query_mode=exact``, the mode reference-trained checkpoints expect), is
-plain PyTorch on every device, as the JAX package leaves it to XLA: a
-chunked top-k over an ordering key (``backtoreality_tpu/ops/
-ball_query.py:71-135``).
+(``query_mode=exact``, the mode reference-trained checkpoints expect),
+which the JAX package leaves to XLA (``backtoreality_tpu/ops/
+ball_query.py:71-135``), has two implementations too:
+
+* :func:`_ball_query_exact_torch` — the plain version, a chunked top-k
+  over an ordering key (the JAX function's counterpart);
+* :func:`_ball_query_exact_cuda` — the hand-written kernel of
+  ``csrc/ball_query.cu`` (``bq_exact_launch``): a warp per centre walks
+  the points in index order and leaves at its `nsample`-th hit, with the
+  stratified kernels' radius test in float32 and the plain version's
+  direct form in float64.
 
 How a CUDA call is laid out on the card is decided by its shape alone
 (:func:`plan`): which of the source's two mappings it takes (a lane holds
@@ -63,7 +70,22 @@ KERNEL = _build.Kernel(
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p],
+        # xyz (rows of 3 contiguous values) and its batch stride, centres
+        # and their two strides, b, n, m, r^2, nsample, whether float64,
+        # idx, counter of executed tests (or null), stream
+        "bq_exact_launch": [
+            ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p],
     })
+# `KERNEL.launches` counts the stratified query's launches; `EXACT` those
+# of the exact first-k query, a kernel of the same source
+EXACT = _build.Entry(
+    KERNEL, "ball_query_exact",
+    replaces="backtoreality_tpu/ops/ball_query.py:71 (ball_query, left to"
+             " XLA)")
 _CHUNK = 256  # centres per dense (B, chunk, N) distance block
 
 # What csrc/ball_query.cu is built for (its constants of the same names).
@@ -245,6 +267,17 @@ def _ball_query_stratified_torch(xyz, new_xyz, radius, nsample):
     return torch.cat(outs, dim=1), torch.cat(hits, dim=1)
 
 
+def _check_clouds(xyz, new_xyz):
+    """What both kernels take: (B, *, 3) points and centres on one device
+    with one batch."""
+    for name, t in (("xyz", xyz), ("new_xyz", new_xyz)):
+        if t.dim() != 3 or t.shape[-1] != 3:
+            raise ValueError(f"{name} must be (B, *, 3), got"
+                             f" {tuple(t.shape)}")
+    if new_xyz.device != xyz.device or new_xyz.shape[0] != xyz.shape[0]:
+        raise ValueError("xyz and new_xyz must share device and batch")
+
+
 def _ball_query_stratified_cuda(xyz, new_xyz, radius, nsample,
                                 tile: Plan | None = None, counter=None):
     """The kernel on CUDA tensors; `tile` overrides :func:`plan` (for
@@ -255,11 +288,7 @@ def _ball_query_stratified_cuda(xyz, new_xyz, radius, nsample,
         if t.dtype != torch.float32:
             raise TypeError(f"ball query kernel takes float32 {name},"
                             f" got {t.dtype}")
-        if t.dim() != 3 or t.shape[-1] != 3:
-            raise ValueError(f"{name} must be (B, *, 3), got"
-                             f" {tuple(t.shape)}")
-    if new_xyz.device != xyz.device or new_xyz.shape[0] != xyz.shape[0]:
-        raise ValueError("xyz and new_xyz must share device and batch")
+    _check_clouds(xyz, new_xyz)
     if not 0 < nsample <= _MAX_SLOTS:
         raise ValueError(f"nsample must be in 1..{_MAX_SLOTS}, got"
                          f" {nsample}")
@@ -284,17 +313,9 @@ def _ball_query_stratified_cuda(xyz, new_xyz, radius, nsample,
     return idx, hit
 
 
-def ball_query(
-    xyz: torch.Tensor,
-    new_xyz: torch.Tensor,
-    radius: float,
-    nsample: int,
-    chunk: int = _CHUNK,
-) -> torch.Tensor:
-    """Exact reference ball query: the first `nsample` points in index
-    order with squared distance < radius^2; slots past a centre's count
-    repeat its first hit, and a centre with no hit gets index 0 in every
-    slot.
+def _ball_query_exact_torch(xyz, new_xyz, radius, nsample,
+                            chunk: int = _CHUNK):
+    """The plain exact query (counterpart of the JAX ``ball_query``).
 
     Centres go `chunk` at a time (the last chunk padded) to bound the
     (B, chunk, N) distances. A hit's key 2n - j ranks above every miss's
@@ -304,20 +325,7 @@ def ball_query(
     |c - p|^2 (the expanded form's cancellation would flip points near
     the radius against the reference's direct test); others compute in
     float32 in the expanded form. r^2 is the Python product rounded once
-    to that dtype.
-
-    Args:
-      xyz: (B, N, 3) points.
-      new_xyz: (B, M, 3) query centres.
-      radius: ball radius.
-      nsample: slots per centre.
-      chunk: centres per distance block.
-
-    Returns:
-      (B, M, nsample) int32 indices into N, on the inputs' device.
-    """
-    xyz = xyz.detach()
-    new_xyz = new_xyz.detach()
+    to that dtype."""
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     ct = torch.float64 if xyz.dtype == torch.float64 else torch.float32
@@ -345,6 +353,72 @@ def ball_query(
         cnt = mask.sum(dim=-1)
         outs.append(torch.where(slot < cnt[..., None], idx, idx[..., :1]))
     return torch.cat(outs, dim=1)[:, :m]
+
+
+def _ball_query_exact_cuda(xyz, new_xyz, radius, nsample, counter=None):
+    """The kernel on CUDA tensors, in float64 for float64 `xyz`, else in
+    float32 (both inputs cast to it, as the plain version casts them);
+    `counter`, a one-element int64 CUDA tensor, has the distance tests
+    executed added to it."""
+    ct = torch.float64 if xyz.dtype == torch.float64 else torch.float32
+    _check_clouds(xyz, new_xyz)
+    if nsample <= 0:
+        raise ValueError(f"nsample must be positive, got {nsample}")
+    xyz = xyz.to(ct)
+    new_xyz = new_xyz.to(ct)
+    # the kernel reads a row's points 4 at a time as whole 16-byte words:
+    # rows of 3 contiguous values (SA1's xyz, the first 3 of each point's 4
+    # values, is copied)
+    if xyz.stride(-1) != 1 or xyz.stride(-2) != 3:
+        xyz = xyz.contiguous()
+    new_xyz = new_xyz if new_xyz.stride(-1) == 1 else new_xyz.contiguous()
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    idx = torch.empty(b, m, nsample, dtype=torch.int32, device=xyz.device)
+    err = KERNEL.lib.bq_exact_launch(
+        _build.ptr(xyz), xyz.stride(0),
+        _build.ptr(new_xyz), new_xyz.stride(0), new_xyz.stride(1),
+        b, n, m, radius * radius, nsample, int(ct == torch.float64),
+        _build.ptr(idx), None if counter is None else _build.ptr(counter),
+        _build.stream_of(xyz))
+    _build.check(err, "bq_exact_launch")
+    EXACT.launches += 1
+    EXACT.bytes += _build.nbytes(xyz, new_xyz, idx)
+    return idx
+
+
+def ball_query(
+    xyz: torch.Tensor,
+    new_xyz: torch.Tensor,
+    radius: float,
+    nsample: int,
+    chunk: int = _CHUNK,
+) -> torch.Tensor:
+    """Exact reference ball query: the first `nsample` points in index
+    order with squared distance < radius^2; slots past a centre's count
+    repeat its first hit, and a centre with no hit gets index 0 in every
+    slot. float64 inputs compute in float64, others in float32.
+
+    Args:
+      xyz: (B, N, 3) points.
+      new_xyz: (B, M, 3) query centres.
+      radius: ball radius.
+      nsample: slots per centre.
+      chunk: centres per distance block of the plain version; the kernel
+        needs none and ignores it.
+
+    Returns:
+      (B, M, nsample) int32 indices into N, on the inputs' device. A CUDA
+      tensor runs the kernel, a CPU tensor the plain version.
+    """
+    # integer-valued op: no gradient
+    xyz = xyz.detach()
+    new_xyz = new_xyz.detach()
+    if xyz.is_cuda:
+        return _ball_query_exact_cuda(xyz, new_xyz, radius, nsample)
+    if xyz.device.type == "cpu":
+        return _ball_query_exact_torch(xyz, new_xyz, radius, nsample, chunk)
+    raise ValueError(f"no ball query for device {xyz.device}")
 
 
 def ball_query_stratified(

@@ -64,7 +64,8 @@ PEAKS_HBM_GBS = {
 # the ops whose CUDA launches the dispatcher never sees: their calls are
 # opaque to the counting modes and counted by their own bytes
 KERNEL_OPS = ("furthest_point_sample", "ball_query_stratified",
-              "group_localize_stratified", "group_points_stratified")
+              "ball_query", "group_localize_stratified",
+              "group_points_stratified")
 
 # aten ops that move no data: allocations (views are told by `is_view`)
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
@@ -146,11 +147,14 @@ def kernels_opaque(counts: ByteCount):
 
 
 def _kernels():
-    """The three kernels (the package exports functions under the
-    modules' names)."""
-    return tuple(importlib.import_module(
-        f"backtoreality_tpu_torch.ops.{name}").KERNEL
-        for name in ("fps", "ball_query", "grouping"))
+    """The three kernels and the exact query's entry, which counts its
+    own bytes (the package exports functions under the modules'
+    names)."""
+    modules = {name: importlib.import_module(
+        f"backtoreality_tpu_torch.ops.{name}")
+        for name in ("fps", "ball_query", "grouping")}
+    return tuple(m.KERNEL for m in modules.values()) + (
+        modules["ball_query"].EXACT,)
 
 
 def count_step(step_fn):

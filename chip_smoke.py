@@ -160,19 +160,29 @@ gated on two steps from one state giving bitwise-equal parameters.
    (``evidence/round5/gflad/f32_metrics.jsonl``); fails unless the mean
    loss over epochs 40-49 lies within 0.67-1.5 times the JAX run's and
    mAP@0.25 at epoch 49 reaches 0.30.
-8. ``--query_mode exact``, the reference's first-k query (plain PyTorch,
-   ``ops.ball_query``): at the five VoteNet layers' shapes (B=8,
-   N=40000) and GroupFree3D's SA1 (N=50000) on the card against the same
-   call on the CPU, equal except at centres whose first differing slot
-   holds a point within 1e-5 r^2 of the radius (counted), timed beside K3
-   at the same shape, with its peak memory. The reference's initial
+8. ``--query_mode exact``, the reference's first-k query (``ops.ball_query``,
+   the kernel ``bq_exact_launch`` of ``csrc/ball_query.cu`` on the card).
+   The reference's initial
    checkpoints in the repo (``evidence/round5/{wsb,br,gf}/
    ref_init_checkpoint.tar.gz``) converted by the port's
    ``tools.torch_import`` CLI, each restored into its graph with no entry
    left fresh. ``evaluate --query_mode exact`` serving WSB's init
    (VoteNet, B=8, N=40000) and GF's (2 decoder layers, feed-forward 128,
-   height, N=50000): FPS 5 and 4 launches a forward, K3 and K4 none; a
-   batch timed. Then the round-5 system-parity pairs (WSB, BR,
+   height, N=50000): FPS and the exact query 5 and 4 launches a forward,
+   K3 and K4 none; a batch timed. ``[exact query]``: the kernel at every
+   input those servings gave it (the five VoteNet layers, GF's SA1) and
+   on the edge clouds of ``exact_edge_clouds`` (exactly S hits and S + 1,
+   hits across a 32- and a 128-point boundary, N = 1000 and 2049,
+   S = 96, a centre whose only hit is the last point): against the plain
+   version on the card and on the CPU, equal except at centres whose first
+   differing slot holds a point within K3's rounding rule of the radius
+   (counted; none on the edge clouds, whose planted rows are checked), the
+   plain version on the card against the CPU within 1e-5 r^2; slot 0
+   bitwise K3's global first hit; the tests executed (its counter) within
+   127 a centre of those the data needs; float64 bitwise the plain float64
+   version at SA1, SA3 and the edge clouds; bfloat16 and float16 taken as
+   float32; timed beside the plain version, K3 and the bound, with its
+   peak memory. Then the round-5 system-parity pairs (WSB, BR,
    CenterRefine, GF), in a process of their own (``--child pairs``)
    beside the learning check and ``[datagen -> br]``, on the ``parity``
    and ``br`` fixtures of the port's
@@ -182,7 +192,11 @@ gated on two steps from one state giving bitwise-equal parameters.
    epochs; ``tools.parity_report`` against the reference loop's history;
    fails unless the late ratio (the mean train loss over the last 11
    matched epochs over the reference's) lies within 0.85-1.15, printed
-   beside the JAX leg's, with the mAP rows (not gated).
+   beside the JAX leg's, with the mAP rows (not gated); the exact query
+   5, 5, 6 and 4 launches a forward (CenterRefine's jitter head queries
+   too), and its kernel held and timed as above at every input of the
+   pairs' that the servings did not give it, once the pairs and
+   ``[preemption]`` have ended.
    ``[datagen -> br]``, the paper's data path on the port's own datagen:
    16 ScanNet-format scans (60000 floor and wall vertices and 5 or 6
    labelled md40 objects each, 4 of them holding a keyboard, cup or
@@ -240,8 +254,10 @@ gated on two steps from one state giving bitwise-equal parameters.
    10-15 naming the FPS, ball-query and grouping kernels.
 10. Print each phase's seconds, the card's name and power limit, one JSON
    line with every kernel's numbers (times summed over the VoteNet FSB
-   training path's shapes; launches by path, the GF, exact,
-   data-parallel and model-surface paths included); then fail if a
+   training path's shapes, the exact query's over the VoteNet exact
+   serving's; launches by path, the GF, exact, data-parallel and
+   model-surface paths included; the exact query's on every exact path
+   and on no other); then fail if a
    bfloat16 checkpoint gate of phase 6 failed (its verdict waits for the
    later phases), else print as the last line ``{"ok": true, "device":
    {"platform": "gpu", ...}}``.
@@ -702,6 +718,89 @@ def bq_edge_inputs(device):
     return cases
 
 
+def boundary_free_radius(xyz, centres, r, margin=1e-5):
+    """Smallest radius >= r with no centre-point squared distance (float64,
+    of the float32 values) within `margin` of r^2: an expanded-form f32
+    test rounds by about 1e-6 there, differently in each implementation,
+    so a point that close to the radius could fall either way."""
+    import numpy as np
+
+    d2 = np.sort(np.sum((centres[:, :, None, :].astype(np.float64)
+                         - xyz[:, None, :, :].astype(np.float64)) ** 2,
+                        axis=-1).ravel())
+    r2 = r * r
+    while True:
+        i = np.searchsorted(d2, r2 - margin)
+        if i == d2.size or d2[i] >= r2 + margin:
+            return float(np.sqrt(r2))
+        r2 = d2[i] + 2 * margin
+
+
+def exact_edge_clouds(seed=0):
+    """The exact first-k query's edge cases, what its scan and its tail
+    can get wrong, as dicts of label, xyz (2, N, 3) and centres (2, 32, 3)
+    float32 numpy arrays, radius and nsample, and `planted`: the hit
+    indices of the first centres of each row, which sit alone at (20 + 5k,
+    20, 20) with their hits within 0.05 of them (the other centres and
+    points lie in [0, 2)^3, the radius is boundary-free). The CPU tests
+    hold the port against the JAX package on these clouds, the smoke the
+    kernel against the plain version."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def case(label, n, nsample, r, planted):
+        xyz = rng.random((2, n, 3)) * 2.0
+        centres = xyz[:, rng.permutation(n)[:32]] + rng.normal(
+            size=(2, 32, 3)) * 0.05
+        for k, hits in enumerate(planted):
+            at = np.array([20.0 + 5 * k, 20.0, 20.0])
+            centres[:, k] = at
+            if hits:
+                xyz[:, hits] = at + rng.uniform(-0.05, 0.05,
+                                                (2, len(hits), 3))
+        xyz, centres = xyz.astype(np.float32), centres.astype(np.float32)
+        return dict(label=label, xyz=xyz, centres=centres,
+                    radius=boundary_free_radius(xyz, centres, r),
+                    nsample=nsample, planted=planted)
+
+    def scattered(n, *sizes):
+        """Disjoint sorted index lists of `sizes`."""
+        pool, out = rng.permutation(n).tolist(), []
+        for k in sizes:
+            out.append(sorted(pool[:k]))
+            pool = pool[k:]
+        return out
+
+    return [
+        # no hit; exactly nsample hits; nsample + 1
+        case("s_hits", 1000, 16, 0.3, [[], *scattered(1000, 16)]),
+        case("s_plus_1", 1000, 16, 0.3, scattered(1000, 17, 15)),
+        # hits across a 32-point and a 128-point boundary: the 16th at
+        # 137, 16 ending at 155, 2 (the tail from 95)
+        case("straddle", 1000, 16, 0.3, [
+            [30, 31, 32, 33, *range(126, 139)], list(range(140, 156)),
+            [95, 96]]),
+        # N no multiple of 32: the last point alone, and the 7 before it
+        case("n1000", 1000, 32, 0.4, [[999], list(range(992, 999))]),
+        case("n2049", 2049, 16, 0.3, [[2048], [0, 2047]]),
+        # more slots than the stratified query takes (64)
+        case("s96", 3000, 96, 0.45, scattered(3000, 97, 95)),
+        # a centre whose only hit is point N - 1
+        case("last_only", 2049, 64, 0.3, [[2048], []]),
+    ]
+
+
+def exact_expected(planted, nsample):
+    """The planted centres' slots: each one's first nsample hits, then its
+    first hit (index 0 in every slot where it has none)."""
+    out = []
+    for hits in planted:
+        row = hits[:nsample]
+        out.append(row + [row[0] if row else 0] * (nsample - len(row)))
+    return out
+
+
 def check_bq_edges(bq, device):
     import torch
 
@@ -1025,6 +1124,18 @@ def fps_dims(xyz, npoint, candidates=None):
     return (*xyz.shape[:2], npoint, candidates)
 
 
+def same_layout(x, device=None):
+    """A copy of `x` with its strides, on `device` (default its own): a
+    view keeps the layout a kernel's wrapper is given (SA1's xyz is the
+    first 3 of each point's 4 values), which `clone` and `to` make
+    contiguous."""
+    import torch
+
+    out = torch.empty_strided(x.size(), x.stride(), dtype=x.dtype,
+                              device=x.device if device is None else device)
+    return out.copy_(x.detach())
+
+
 def bq_dims(xyz, new_xyz, radius, nsample):
     """The ball query's: (B, N, M, S, radius)."""
     return (*xyz.shape[:2], new_xyz.shape[1], nsample, float(radius))
@@ -1039,11 +1150,13 @@ def group_dims(idx, n, width):
 class ShapeLog:
     """The shapes the kernels launch at in a block (``with ShapeLog() as
     log``), as the nn modules reach them (``backtoreality_tpu_torch.ops.
-    <name>``): `shapes` holds (kind, dims) of each FPS, ball query and
-    fused grouping call, the grouping also as the unfused kernel it
-    counts as (C = 3 + the features' width), and each as a backward
-    ("localize_backward", "group_backward") where an input takes a
-    gradient."""
+    <name>``): `shapes` holds (kind, dims) of each FPS, ball query (exact:
+    "ball_query_exact") and fused grouping call, the grouping also as the
+    unfused kernel it counts as (C = 3 + the features' width), and each as
+    a backward ("localize_backward", "group_backward") where an input
+    takes a gradient. `inputs` keeps a copy of the first (xyz, centres,
+    radius, nsample) of the exact query at each of its dims, in the
+    layout it was given (`same_layout`)."""
 
     def __enter__(self):
         import torch
@@ -1051,9 +1164,11 @@ class ShapeLog:
         from backtoreality_tpu_torch import ops
 
         self.shapes = set()
-        fps, query, local = (ops.furthest_point_sample,
-                             ops.ball_query_stratified,
-                             ops.group_localize_stratified)
+        self.inputs = {}
+        fps, query, local, exact = (ops.furthest_point_sample,
+                                    ops.ball_query_stratified,
+                                    ops.group_localize_stratified,
+                                    ops.ball_query)
 
         def fps_logged(xyz, npoint, candidates=None):
             self.shapes.add(("fps", fps_dims(xyz, npoint, candidates)))
@@ -1063,6 +1178,14 @@ class ShapeLog:
             self.shapes.add(("ball_query",
                              bq_dims(xyz, new_xyz, radius, nsample)))
             return query(xyz, new_xyz, radius, nsample, return_hit)
+
+        def exact_logged(xyz, new_xyz, radius, nsample, *args, **kwargs):
+            dims = bq_dims(xyz, new_xyz, radius, nsample)
+            self.shapes.add(("ball_query_exact", dims))
+            if dims not in self.inputs:
+                self.inputs[dims] = (same_layout(xyz),
+                                     same_layout(new_xyz), radius, nsample)
+            return exact(xyz, new_xyz, radius, nsample, *args, **kwargs)
 
         def local_logged(xyz, features, new_xyz, idx, hit, radius):
             c = 0 if features is None else features.shape[-1]
@@ -1078,7 +1201,8 @@ class ShapeLog:
 
         self.saved = patch_ops(furthest_point_sample=fps_logged,
                                ball_query_stratified=query_logged,
-                               group_localize_stratified=local_logged)
+                               group_localize_stratified=local_logged,
+                               ball_query=exact_logged)
         return self
 
     def __exit__(self, *exc):
@@ -1092,7 +1216,8 @@ def tag_paths(shapes_by_path, records):
     that no record holds against its plain version; the unfused
     grouping's records (the same kernel at the points' width) take the
     paths whose shapes they hold."""
-    strict = ("fps", "ball_query", "localize", "localize_backward")
+    strict = ("fps", "ball_query", "localize", "localize_backward",
+              "ball_query_exact")
     for path, shapes in shapes_by_path.items():
         for kind, dims in sorted(shapes, key=str):
             held = [r for r in records[kind]
@@ -1322,9 +1447,10 @@ def reset(counters):
 
 def read_counts(counters) -> dict:
     """The launch counters by name (counters: FPS, ball query, grouping,
-    fused grouping)."""
-    fps_k, bq_k, group_k, localize_k = counters
+    fused grouping, exact ball query)."""
+    fps_k, bq_k, group_k, localize_k, exact_k = counters
     return {"fps": fps_k.launches, "ball_query": bq_k.launches,
+            "ball_query_exact": exact_k.launches,
             "group_stratified": group_k.launches,
             "group_stratified_backward": group_k.backward_launches,
             "group_localize_stratified": localize_k.launches,
@@ -1338,6 +1464,7 @@ def check_counts(label, launches, kind, forwards, steps):
     want = dict(zip(("fps", "ball_query", "group_localize_stratified"),
                     (n * forwards for n in PER_FORWARD[kind])))
     want["group_stratified"] = want["group_localize_stratified"]
+    want["ball_query_exact"] = 0
     backward = BACKWARDS_PER_STEP[kind] * steps
     want["group_stratified_backward"] = backward
     want["group_localize_stratified_backward"] = backward
@@ -1781,8 +1908,8 @@ def check_half_refused(xyz, feats, ctr, fps, bq, grouping, counters):
     launched = {k: v for k, v in read_counts(counters).items() if v}
     require(launched == {"ball_query": 1},
             f"launches on refused inputs: {launched}")
-    print("[kernels] every wrapper raises TypeError on bfloat16 and float16"
-          " inputs, launching nothing")
+    print("[kernels] every wrapper of K1-K4 raises TypeError on bfloat16"
+          " and float16 inputs, launching nothing")
 
 
 def bf16_step(label, model, opt, step, batches, header, f32):
@@ -2500,8 +2627,9 @@ def model_surface_phase(scans, virtual, cfg, counters, header, fps, bq,
                                              grads_of, counters))
     paths["surface_variants"] = total
     shapes["surface_variants"] = log.shapes
-    want = dict(fps=5, ball_query=9, group_stratified=9,
-                group_localize_stratified=9, group_stratified_backward=9,
+    want = dict(fps=5, ball_query=9, ball_query_exact=0,
+                group_stratified=9, group_localize_stratified=9,
+                group_stratified_backward=9,
                 group_localize_stratified_backward=9)
     require(total == want, f"surface_variants: launches {total}, expected"
             f" {want} (FPS: MSG, Rlt, 3 SA2 variants; K3 and K4: 3 MSG"
@@ -3021,10 +3149,13 @@ def gf_learning_check(tmp, counters):
 # imported, and the round-5 system-parity pairs
 # ---------------------------------------------------------------------------
 
-# the exact query at the card against the CPU: a centre may differ only
-# where, at its first differing slot, one of the two indices lies within
-# this share of r^2 from the radius (the expanded form's f32 products round
-# differently in the card's and the CPU's matrix products)
+# the plain exact query on the card against the CPU: a centre may differ
+# only where, at its first differing slot, one of the two indices lies
+# within this share of r^2 from the radius (the expanded form's f32
+# products round differently in the card's and the CPU's matrix products).
+# The kernel's test rounds the same form in another order, by up to about
+# an ulp of (|c| + |p|)^2 (3e-5 r^2 at r = 0.2 in a room): it is held to
+# K3's rule, BQ_GAP_ULPS of (|c| + |p|)^2
 EXACT_GAP_REL = 1e-5
 REF_INITS = {"wsb": "votenet", "br": "votenet_da", "gf": "groupfree"}
 # the imported GroupFree3D init's widths (evidence/round5/gf/ours_config.json)
@@ -3054,6 +3185,9 @@ PAIRS = {
         *GF_INIT_FLAGS, "--val_freq", "25", "--rng_seed", "0",
         "--query_mode", "exact", "--guard_every_steps", "0"], "gf", 51),
 }
+# each pair's graph, as PER_FORWARD names it (CenterRefine's jitter head
+# queries the GT centres: 6 exact queries a forward)
+PAIR_GRAPH = {"wsb": "plain", "br": "da", "cr": "da_jitter", "gf": "gf"}
 PAIR_LATE = 11  # the late ratio's epochs: the last 11 matched
 PAIRS_TIMEOUT = 900  # seconds for the four pairs in their process
 PAIR_BAND = (0.85, 1.15)
@@ -3065,73 +3199,215 @@ PAIR_OWN_FLAGS = {"data_root", "val_data_root", "source_data_root",
                   "device"}
 
 
-def exact_query_phase(calls, bq, header):
-    """The plain exact ball query (``ops.ball_query``, first k in index
-    order) on the card against the same call on the CPU at each shape of
-    `calls` (label, xyz, centres, radius, nsample): equal except at points
-    within EXACT_GAP_REL of r^2 from the radius, whose centres are
-    counted; its time (CUDA events) beside K3's at the same shape and
-    beside its bound (the distance tests this data needs, as K3's), and
-    the peak memory of one call. Returns the records."""
+def exact_gaps(label, xyz, ctr, radius, got, want, ulps=None):
+    """Centres where `got` and `want` (CPU int32) differ: at the first
+    differing slot, one of the two indices must lie within EXACT_GAP_REL of
+    r^2 from the radius or, with `ulps`, within ulps * 2^-24 (|c| + |p|)^2
+    of it (the rounding of the expanded-form test). Returns (centres,
+    largest |d2 - r^2| / r^2, largest |d2 - r^2|, largest |d2 - r^2| in
+    units of 2^-24 (|c| + |p|)^2), each of the nearer index."""
     import torch
 
-    print(f"[exact query] ops.ball_query on the card against the CPU; K3"
-          f" (the stratified kernel) at the same shape  | {header}")
+    rows = (got != want).any(-1).nonzero(as_tuple=True)
+    if not rows[0].numel():
+        return 0, 0.0, 0.0, 0.0
+    first = (got[rows] != want[rows]).int().argmax(-1)
+    pts = xyz.cpu().double()
+    ctrs = ctr.cpu()[rows].double()
+    r2 = radius * radius
+    gaps, units = [], []
+    for idx in (got[rows], want[rows]):
+        j = idx.gather(1, first[:, None])[:, 0].long()
+        p = pts[rows[0], j]
+        gaps.append((((p - ctrs) ** 2).sum(-1) - r2).abs())
+        units.append(gaps[-1] / (2.0 ** -24 * (p.norm(dim=-1)
+                                               + ctrs.norm(dim=-1)) ** 2))
+    near = gaps[0] / r2 <= gaps[1] / r2 if ulps is None else (
+        units[0] <= units[1])
+    gap = torch.where(near, gaps[0], gaps[1])
+    unit = torch.where(near, units[0], units[1])
+    worst = (gap.max().item() / r2 if ulps is None else unit.max().item())
+    limit = EXACT_GAP_REL if ulps is None else ulps
+    require(worst <= limit, f"exact query {label}: a centre differs"
+            f" {worst:.2e} {'r^2' if ulps is None else 'ulps'} from the"
+            f" radius, beyond {limit}")
+    return (int(rows[0].numel()), gap.max().item() / r2, gap.max().item(),
+            unit.max().item())
+
+
+def exact_tests_needed(bq, xyz, ctr, radius, nsample, chunk=256):
+    """Distance tests the exact query needs on this data: each centre scans
+    up to its nsample-th hit, or every point where it has fewer (the plain
+    float32 test, on the card)."""
+    import torch
+
+    n = xyz.shape[1]
+    r2 = torch.tensor(radius * radius, dtype=torch.float32)
+    total = 0
+    for start in range(0, ctr.shape[1], chunk):
+        d2 = bq._pairwise_d2(ctr[:, start:start + chunk].float(),
+                             xyz.float())
+        cum = (d2 < r2.to(d2.device)).cumsum(-1)
+        pos = (cum >= nsample).to(torch.uint8).argmax(-1)
+        total += torch.where(cum[..., -1] >= nsample, pos + 1,
+                             n).sum().item()
+    return total
+
+
+def exact_query_phase(calls, bq, reps):
+    """The exact first-k query's kernel (``ops.ball_query`` on the card, the
+    `EXACT` entry) at each call of `calls` (label, xyz, centres, radius,
+    nsample, f64, planted) on the card: against the plain version on the
+    card (`_ball_query_exact_torch`) and on the CPU, equal except at
+    centres whose first differing slot holds a point within the rounding
+    of the expanded-form test (BQ_GAP_ULPS of (|c| + |p|)^2, K3's rule)
+    from the radius (counted; none where `planted`, a list, gives
+    boundary-free edge clouds with known rows), and the plain version on
+    the card against the CPU within EXACT_GAP_REL; its slot 0 bitwise K3's
+    global first hit (the same radius test); the tests it executed (its
+    counter) at least those the data needs and at most 127 a centre more;
+    with `f64`, the float64 instantiation bitwise the plain float64
+    version. With `reps`, the kernel, the plain version and K3 timed (CUDA
+    events) beside the bound, and the kernel's peak memory. Returns the
+    records."""
+    import torch
+
     records = []
-    for label, xyz, ctr, radius, nsample in calls:
+    for label, xyz, ctr, radius, nsample, f64, planted in calls:
         b, n, _ = xyz.shape
         m = ctr.shape[1]
         want = bq.ball_query(xyz.cpu(), ctr.cpu(), radius, nsample)
+        plain = bq._ball_query_exact_torch(xyz, ctr, radius, nsample)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         got = bq.ball_query(xyz, ctr, radius, nsample)
         torch.cuda.synchronize()
         peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-        got = got.cpu()
         require(got.dtype == torch.int32 and got.shape == want.shape,
                 f"exact query {label}: {got.dtype} {tuple(got.shape)}")
-        rows = (got != want).any(-1).nonzero(as_tuple=True)
-        gap_rel = 0.0
-        if rows[0].numel():
-            first = (got[rows] != want[rows]).int().argmax(-1)
-            pts = xyz.cpu().double()
-            ctrs = ctr.cpu()[rows].double()
-            r2 = radius * radius
-            gaps = []
-            for idx in (got[rows], want[rows]):
-                j = idx.gather(1, first[:, None])[:, 0].long()
-                d2 = ((pts[rows[0], j] - ctrs) ** 2).sum(-1)
-                gaps.append((d2 - r2).abs() / r2)
-            gap = torch.minimum(*gaps)
-            gap_rel = gap.max().item()
-            require(gap_rel <= EXACT_GAP_REL,
-                    f"exact query {label}: a centre differs {gap_rel:.2e}"
-                    f" r^2 from the radius, beyond {EXACT_GAP_REL}")
-        # tests this data needs: each centre scans up to its last slot's
-        # hit, or every point where it has fewer hits than slots (its
-        # real hits rise strictly; fill slots repeat the first)
-        full = want[..., -1] > want[..., -2]
-        tests = torch.where(full, want[..., -1].long() + 1, n).sum().item()
-        bnd, by = bound_ms(BQ_OPS_PER_TEST * tests,
-                           b * n * 12 + b * m * 12 + b * m * nsample * 4)
-        exact_ms = cuda_ms(lambda: bq.ball_query(xyz, ctr, radius, nsample),
-                           reps=5, ahead=True)
-        k3_ms = cuda_ms(lambda: bq._ball_query_stratified_cuda(
-            xyz, ctr, radius, nsample), reps=5, ahead=True)
-        rec = dict(shape=label, b=b, n=n, m=m, nsample=nsample,
-                   radius=radius, boundary_centres=int(rows[0].numel()),
-                   max_gap_rel=gap_rel, ms=exact_ms, k3_ms=k3_ms,
-                   tests_needed=tests, bound_ms=bnd, bound_by=by,
-                   peak_mib=peak)
+        # the plain version on the card against the CPU: the same
+        # expanded form, EXACT_GAP_REL; the kernel against both: its own
+        # rounding of that form, as K3's (BQ_GAP_ULPS)
+        plain_off, plain_rel, _, _ = exact_gaps(
+            f"{label}: the plain version on the card against the CPU", xyz,
+            ctr, radius, plain.cpu(), want)
+        ulps = BQ_GAP_ULPS * 2**24
+        cpu_off, gap_rel, gap, unit = exact_gaps(
+            f"{label}: the kernel against the CPU", xyz, ctr, radius,
+            got.cpu(), want, ulps)
+        card_off, rel2, gap2, unit2 = exact_gaps(
+            f"{label}: the kernel against the plain version on the card",
+            xyz, ctr, radius, got.cpu(), plain.cpu(), ulps)
+        gap_rel, gap, unit = (max(gap_rel, rel2), max(gap, gap2),
+                              max(unit, unit2))
+        if planted is not None:
+            require(cpu_off == card_off == 0, f"exact query {label}: the"
+                    " kernel differs from the plain version on a"
+                    " boundary-free cloud")
+            known = torch.tensor(exact_expected(planted, nsample),
+                                 dtype=torch.int32)
+            require(bool((got.cpu()[:, :len(planted)] == known).all()),
+                    f"exact query {label}: a planted centre's slots")
+        # slot 0 against K3's global first hit: the first hit of its first
+        # slot that has one (index 0 where none has)
+        k_idx, k_hit = bq._ball_query_stratified_cuda(
+            xyz.float(), ctr.float(), radius, min(nsample, bq._MAX_SLOTS))
+        first = k_hit.to(torch.uint8).argmax(-1, keepdim=True)
+        k3_first = torch.where(k_hit.any(-1), k_idx.gather(-1, first)[..., 0],
+                               0)
+        slot0 = int((got[..., 0] != k3_first).sum().item())
+        require(slot0 == 0, f"exact query {label}: slot 0 differs from K3's"
+                f" first hit at {slot0} centres")
+        counter = torch.zeros(1, dtype=torch.int64, device=xyz.device)
+        bq._ball_query_exact_cuda(xyz, ctr, radius, nsample, counter)
+        executed = counter.item()
+        tests = exact_tests_needed(bq, xyz, ctr, radius, nsample)
+        slack = n * max(cpu_off, card_off)  # centres at the radius
+        require(tests - slack <= executed <= tests + 127 * b * m + slack,
+                f"exact query {label}: {executed} tests executed, the data"
+                f" needs {tests}")
+        f64_off = None
+        if f64:
+            x64, c64 = xyz.double(), ctr.double()
+            f64_off = int((bq.ball_query(x64, c64, radius, nsample)
+                           != bq._ball_query_exact_torch(
+                               x64, c64, radius, nsample)).sum().item())
+            require(f64_off == 0, f"exact query {label}: float64 kernel"
+                    f" differs from the plain float64 version in {f64_off}"
+                    " slots")
+        rec = dict(shape=label, dims=bq_dims(xyz, ctr, radius, nsample),
+                   xyz_point_stride=xyz.stride(1),
+                   plain_boundary_centres=plain_off,
+                   plain_max_gap_rel=plain_rel,
+                   boundary_centres=max(cpu_off, card_off),
+                   max_gap_rel=gap_rel, max_gap_ulps=unit, max_abs_err=gap,
+                   tests_needed=tests, executed=executed, peak_mib=peak,
+                   f64_slots_differ=f64_off, library_ms=None)
+        text = (f"  {label:24s} B={b} N={n} M={m} S={nsample} r={radius}"
+                f" (points {xyz.stride(1)} values apart):"
+                f" kernel equal to the plain version (card and CPU) but"
+                f" {rec['boundary_centres']} centres at the radius (max"
+                f" {gap_rel:.2e} r^2, {unit:.2f} ulps of (|c| + |p|)^2;"
+                f" plain card / CPU: {plain_off} centres, max"
+                f" {plain_rel:.2e} r^2); slot 0 = K3's first hit; {executed}"
+                f" tests executed, {tests} needed"
+                + ("" if f64_off is None else "; float64 bitwise equal"))
+        if reps:
+            bnd, by = bound_ms(BQ_OPS_PER_TEST * tests,
+                               b * n * 12 + b * m * 12 + b * m * nsample * 4)
+            rec.update(bound_ms=bnd, bound_by=by, ms=cuda_ms(
+                lambda: bq.ball_query(xyz, ctr, radius, nsample), reps,
+                ahead=True), plain_ms=cuda_ms(
+                lambda: bq._ball_query_exact_torch(xyz, ctr, radius,
+                                                   nsample), 3, ahead=True))
+            rec["k3_ms"] = None if nsample > bq._MAX_SLOTS else cuda_ms(
+                lambda: bq._ball_query_stratified_cuda(xyz, ctr, radius,
+                                                       nsample),
+                reps, ahead=True)
+            k3 = ("K3 --" if rec["k3_ms"] is None
+                  else f"K3 {rec['k3_ms']:.4f} ms")
+            text += (f"\n      kernel {rec['ms']:.4f} ms, plain"
+                     f" {rec['plain_ms']:.3f} ms"
+                     f" ({rec['plain_ms'] / rec['ms']:.1f}x), {k3}, bound"
+                     f" {bnd:.4f} ms ({by}), peak {peak:.2f} MiB")
         records.append(rec)
-        print(f"  {label:9s} B={b} N={n} M={m} S={nsample} r={radius}:"
-              f" equal but {rec['boundary_centres']} centres at the radius"
-              f" (max {gap_rel:.2e} r^2); exact {exact_ms:.3f} ms, K3"
-              f" {k3_ms:.4f} ms ({exact_ms / k3_ms:.1f}x), bound"
-              f" {bnd:.4f} ms ({by}, {tests} tests needed), peak"
-              f" {peak:.1f} MiB")
+        print(text)
     return records
+
+
+def exact_edge_calls(device):
+    """`exact_edge_clouds` on the card, as `exact_query_phase` calls (each
+    held in float64 too, and to its planted rows)."""
+    import torch
+
+    calls = []
+    for c in exact_edge_clouds():
+        x, ctr = (torch.from_numpy(c[k]).to(device)
+                  for k in ("xyz", "centres"))
+        calls.append((c["label"], x, ctr, c["radius"], c["nsample"], True,
+                      c["planted"]))
+    return calls
+
+
+def check_exact_half(bq, calls):
+    """bfloat16 and float16 inputs to the exact query run the kernel in
+    float32 (the plain version's cast): bitwise the float32 call on the
+    cast values, and the CPU's result under K3's rule (BQ_GAP_ULPS)."""
+    import torch
+
+    label, x, ctr, radius, nsample = calls[0][:5]
+    for half in (torch.bfloat16, torch.float16):
+        xh, ch = x.to(half), ctr.to(half)
+        got = bq.ball_query(xh, ch, radius, nsample)
+        require(torch.equal(got, bq.ball_query(xh.float(), ch.float(),
+                                               radius, nsample)),
+                f"exact query {label}: {half} not taken as float32")
+        exact_gaps(f"{label} {half}", xh.float(), ch.float(), radius,
+                   got.cpu(), bq.ball_query(xh.cpu(), ch.cpu(), radius,
+                                            nsample), BQ_GAP_ULPS * 2**24)
+    print(f"[exact query] {label}: bfloat16 and float16 inputs run the"
+          " kernel in float32, and agree with the CPU")
 
 
 def torch_import_phase(tmp):
@@ -3174,12 +3450,14 @@ def torch_import_phase(tmp):
     return out
 
 
-def check_exact_counts(label, launches, fps_per_forward, forwards):
-    """Launches on an exact-mode path: FPS `fps_per_forward` a forward, no
-    stratified ball query and no stratified grouping (the exact query and
-    the gather are plain PyTorch)."""
+def check_exact_counts(label, launches, kind, forwards):
+    """Launches on an exact-mode path of graph `kind` (PER_FORWARD's):
+    FPS and the exact query as many times a forward as the graph's FPS
+    and ball query, no stratified ball query and no stratified grouping
+    (the gather is plain PyTorch)."""
     want = {k: 0 for k in launches}
-    want["fps"] = fps_per_forward * forwards
+    want["fps"] = PER_FORWARD[kind][0] * forwards
+    want["ball_query_exact"] = PER_FORWARD[kind][1] * forwards
     for name, n in want.items():
         require(launches[name] == n,
                 f"{label}: {name} launched {launches[name]} times, expected"
@@ -3191,9 +3469,11 @@ def exact_serving_phase(scans, gf_scans, inits, cfg, counters, header):
     VoteNet (WSB's) at the CLI defaults (B=8, N=40000, FPS over the full
     cloud) on the 16 VoteNet scans, GroupFree3D (GF's, at its widths:
     2 decoder layers, feed-forward 128, height) at N=50000 on the 16 GF
-    scans; launch counts (FPS 5 and 4 a forward, K3 and K4 none), finite
-    mAP, then a batch's forward timed (CUDA events), peak memory. Returns
-    the launches by path."""
+    scans; launch counts (FPS and the exact query 5 and 4 a forward, K3
+    and K4 none), finite mAP, then a batch's forward timed (CUDA events),
+    peak memory, its kernels' device time (torch.profiler). Returns the
+    launches by path, the shapes the kernels launched at by path
+    (`ShapeLog`) and the exact query's inputs by its dims."""
     import torch
 
     from backtoreality_tpu_torch.data.dataset import DetectionDataset
@@ -3201,24 +3481,27 @@ def exact_serving_phase(scans, gf_scans, inits, cfg, counters, header):
     from backtoreality_tpu_torch.train import evaluate, groupfree
 
     batches = math.ceil(NUM_SCANS / B)
-    launches = {}
-    for path, model_flag, ckpt, root, extra, fps_per_forward in (
+    launches, shapes, inputs = {}, {}, {}
+    for path, model_flag, ckpt, root, extra, kind in (
             ("serving_exact", "votenet", inits["wsb"], scans,
-             ["--num_point", str(N)], 5),
+             ["--num_point", str(N)], "plain"),
             ("gf_serving_exact", "groupfree", inits["gf"], gf_scans,
-             GF_INIT_FLAGS, 4)):
+             GF_INIT_FLAGS, "gf")):
         args = ["--model", model_flag, "--checkpoint_path", str(ckpt),
                 "--query_mode", "exact", "--data_root", str(root), "--split",
                 "all", "--batch_size", str(B), "--device", "cuda", *extra]
         reset(counters)
         t0 = time.perf_counter()
-        results = evaluate.main(args)
+        with ShapeLog() as shape_log:
+            results = evaluate.main(args)
         secs = time.perf_counter() - t0
         launches[path] = read_counts(counters)
+        shapes[path] = shape_log.shapes
+        inputs.update(shape_log.inputs)
         print(f"[serving path: {model_flag} exact] evaluate.main --query_mode"
               f" exact over {NUM_SCANS} scans in {secs:.1f} s; launches"
               f" {launches[path]} over {batches} batches")
-        check_exact_counts(path, launches[path], fps_per_forward, batches)
+        check_exact_counts(path, launches[path], kind, batches)
         for (prefix, t), metrics in results.items():
             require(math.isfinite(metrics["mAP"]) and math.isfinite(
                 metrics["AR"]), f"{path}: non-finite mAP @ {t}")
@@ -3252,11 +3535,15 @@ def exact_serving_phase(scans, gf_scans, inits, cfg, counters, header):
             torch.cuda.reset_peak_memory_stats()
             fwd_ms = cuda_ms(lambda: model(pc), reps=10, warmup=2)
             peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        print(f"[forward] {model_flag} exact B={B} N={n}: {fwd_ms:.3f} ms per"
-              f" batch (median of 10), {B / fwd_ms * 1e3:.1f} scenes/s, peak"
-              f" {peak_gb:.2f} GiB  | {header}")
+            print(f"[forward] {model_flag} exact B={B} N={n}: {fwd_ms:.3f}"
+                  f" ms per batch (median of 10),"
+                  f" {B / fwd_ms * 1e3:.1f} scenes/s, peak {peak_gb:.2f}"
+                  f" GiB  | {header}")
+            dev_ms = profile_steps(lambda: model(pc), "forwards")
+        print(f"  device busy {dev_ms / fwd_ms:.3f} of the unprofiled"
+              f" forward")
         del model, out
-    return launches
+    return launches, shapes, inputs
 
 
 def _jsonl(path):
@@ -3285,7 +3572,9 @@ def parity_pairs_phase(tmp, inits, counters, header):
     loss over the last PAIR_LATE matched epochs over the reference's
     there) beside the JAX leg's, gated on PAIR_BAND; the mAP rows beside
     the reference's and the JAX leg's (not gated: 12 val scans). Returns
-    the launches by pair."""
+    the launches by pair, the shapes the kernels launched at by pair
+    (`ShapeLog`, as lists) and the file (`torch.save`, on the CPU) of the
+    exact query's inputs by its dims, for `exact_query_phase`."""
     import io
     import shutil
     from contextlib import redirect_stdout
@@ -3304,7 +3593,7 @@ def parity_pairs_phase(tmp, inits, counters, header):
               + ", ".join(f"{p.name} {len(list(p.glob('*_vert.npy')))}"
                           for p in parts)
               + f" scans in {time.perf_counter() - t0:.1f} s")
-    launches = {}
+    launches, shapes, inputs = {}, {}, {}
     for pair, (kind, entry, flags, init, epochs) in PAIRS.items():
         ev = ROOT / "evidence/round5" / pair
         fx = fixtures[kind]
@@ -3322,10 +3611,15 @@ def parity_pairs_phase(tmp, inits, counters, header):
             f"backtoreality_tpu_torch.train.{entry}")
         reset(counters)
         t0 = time.perf_counter()
-        module.main(args)
+        with ShapeLog() as shape_log:
+            module.main(args)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches[f"pair_{pair}"] = got = read_counts(counters)
+        shapes[f"pair_{pair}"] = sorted(shape_log.shapes, key=str)
+        for dims, (x, c, r, k) in shape_log.inputs.items():
+            inputs.setdefault(dims, (same_layout(x, "cpu"),
+                                     same_layout(c, "cpu"), r, k))
         # the JAX leg's flags, but for paths, span and start
         mine = json.loads((log / "config.json").read_text())
         theirs = json.loads((ev / "ours_config.json").read_text())
@@ -3339,8 +3633,7 @@ def parity_pairs_phase(tmp, inits, counters, header):
         evals = epochs // (mine.get("eval_freq") or mine["val_freq"])
         fwd = (2 * steps if kind == "br" else steps) + evals * math.ceil(
             12 / B)
-        check_exact_counts(f"pair {pair}", got,
-                           4 if pair == "gf" else 5, fwd)
+        check_exact_counts(f"pair {pair}", got, PAIR_GRAPH[pair], fwd)
         # the reference loop's history and the JAX leg's metrics, as the
         # report reads them
         ref_dir, jax_dir = root / f"{pair}_ref", root / f"{pair}_jax"
@@ -3389,7 +3682,9 @@ def parity_pairs_phase(tmp, inits, counters, header):
                   f" {jax_map.get(r['epoch'], float('nan')):.4f}")
         require(PAIR_BAND[0] <= ratio <= PAIR_BAND[1],
                 f"pair {pair}: late ratio {ratio:.3f} outside {PAIR_BAND}")
-    return launches
+    torch.save(inputs, tmp / "exact_inputs.pt")
+    return dict(launches=launches, shapes=shapes,
+                inputs=str(tmp / "exact_inputs.pt"))
 
 
 def start_child(tmp, name, payload):
@@ -4234,7 +4529,7 @@ def dp_rank(rank, world, address, spec, out_dir):
     try:
         require(name == "gloo", f"two ranks on one card over {name}")
         counters = (fps.KERNEL, ball_query.KERNEL, grouping.KERNEL,
-                    grouping.LOCALIZE)
+                    grouping.LOCALIZE, ball_query.EXACT)
         out_dir = pathlib.Path(out_dir)
         choices = torch.load(out_dir / "dp_choices.pt", weights_only=False)
         torch.save(dp_steps(spec, counters, choices),
@@ -4791,7 +5086,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     kernels = (fps.KERNEL, bq.KERNEL, grouping.KERNEL)
-    counters = kernels + (grouping.LOCALIZE,)
+    counters = kernels + (grouping.LOCALIZE, bq.EXACT)
     if args.child:
         run_child(args.child[0], pathlib.Path(args.child[1]), counters,
                   header)
@@ -4959,8 +5254,11 @@ def main() -> int:
     local_fwd.append(fwd)
     check_half_refused(ep["sa1_xyz"], ep["sa1_features"], ep["sa2_xyz"],
                        fps, bq, grouping, counters)
-    # the exact query's shapes: those of the five layers
-    exact_calls = [(label, x, c, r, s) for label, x, _, c, r, s in sa_calls]
+    # the exact query at the five layers' inputs of this forward, in their
+    # layout (SA1's xyz: the first 3 of each point's 4 values), held in
+    # [exact query]
+    layer_exact = [(f"layers {label}", x, c, r, s, False, None)
+                   for label, x, _, c, r, s in sa_calls]
     del ep
     # GroupFree3D's fixture: 8 objects of 5500 points and 8000 floor points,
     # 52000 a scan, so the 50000-point draw takes no point twice
@@ -5095,20 +5393,33 @@ def main() -> int:
     paths.update(gf_da_phase(gf_scans, gf_virtual, tmp.name, cfg, counters,
                              header))
     lap("gf br/center refine")
-    # 8. --query_mode exact: the exact query at the layers' shapes (and GF's
-    # SA1 at N=50000), the reference's inits imported, both detectors served
-    # from them (timed, before anything runs beside them)
-    gf_xyz = gf_first_batch(gf_scans, cfg, use_height=False)["point_clouds"]
-    gf_ctr = grouping.gather_points(gf_xyz, fps.furthest_point_sample(
-        gf_xyz, 2048))
-    exact_query_phase(exact_calls + [("gf_sa1", gf_xyz, gf_ctr, 0.2, 64)],
-                      bq, header)
-    lap("exact query")
+    # 8. --query_mode exact: the reference's inits imported, both detectors
+    # served from them (timed, before anything runs beside them), then the
+    # exact query's kernel held to its plain version at the inputs those
+    # forwards gave it (f64 too at VoteNet's SA1 and SA3) and on the edge
+    # clouds
     inits = torch_import_phase(tmp.name)
     lap("torch_import")
-    paths.update(exact_serving_phase(scans, gf_scans, inits, cfg, counters,
-                                     header))
+    launches, exact_shapes, exact_inputs = exact_serving_phase(
+        scans, gf_scans, inits, cfg, counters, header)
+    paths.update(launches)
     lap("serving exact")
+    print(f"[exact query] the kernel (ops.ball_query on the card) at the"
+          f" exact servings' inputs, against the plain version; K3 at the"
+          f" same shape  | {header}")
+    f64_at = {(N, 2048, 64), (1024, 512, 16)}  # (N, M, S) of SA1 and SA3
+    exact_records = exact_query_phase(
+        [(f"serving {d[:4]}", x, c, r, k, d[1:4] in f64_at, None)
+         for d, (x, c, r, k) in sorted(exact_inputs.items())], bq, reps=5)
+    print("[exact query] the edge clouds (exact_edge_clouds), float32 and"
+          " float64")
+    print("[exact query] the kernel at the five layers' inputs of the"
+          " stratified serving forward ([kernels]), checked, not timed")
+    layer_records = exact_query_phase(layer_exact, bq, reps=0)
+    edges = exact_edge_calls(device)
+    layer_records += exact_query_phase(edges, bq, reps=0)
+    check_exact_half(bq, edges)
+    lap("exact query")
     # the round-5 parity pairs and [datagen -> br]'s syntheses in processes
     # of their own, beside the learning check and votenet_br on the
     # syntheses, which time no step
@@ -5124,10 +5435,28 @@ def main() -> int:
     lap("datagen br")
     paths["gf_sweep"] = finish_child(sweep, SWEEP_TIMEOUT)["launches"]
     lap("gf sweep")
-    paths.update(finish_child(pairs, PAIRS_TIMEOUT))
+    pairs = finish_child(pairs, PAIRS_TIMEOUT)
+    paths.update(pairs["launches"])
+    for path, shapes in pairs["shapes"].items():
+        exact_shapes[path] = {(kind, tuple(dims)) for kind, dims in shapes}
     lap("parity pairs")
     finish_child(preemption, PREEMPTION_TIMEOUT)
     lap("preemption")
+    # the pairs' inputs to the exact query, timed now that nothing runs
+    # beside it, at the dims the servings did not hold
+    held = {tuple(r["dims"]) for r in exact_records}
+    print(f"[exact query] the kernel at the parity pairs' inputs  | {header}")
+    exact_records += exact_query_phase(
+        [(f"pairs {d[:4]}", same_layout(x, device), same_layout(c, device),
+          r, k, False, None)
+         for d, (x, c, r, k) in sorted(torch.load(
+             pairs["inputs"], weights_only=True).items())
+         if d not in held], bq, reps=5)
+    tag_paths({path: {(kind, dims) for kind, dims in shapes
+                      if kind == "ball_query_exact"}
+               for path, shapes in exact_shapes.items()},
+              {"ball_query_exact": exact_records})
+    lap("exact query pairs")
 
     # 10. data parallelism, the guard's snapshot time, the profiler window
     paths.update(dp_phase(scans, virtual, gf_scans, tmp.name, counters,
@@ -5182,6 +5511,22 @@ def main() -> int:
         want = set(DP_PATHS + surface)
         require(want <= checked, f"{k['name']}: no check against"
                 f" the plain version at {want - checked}'s shapes")
+    # the exact query's kernel: its times on the VoteNet exact serving
+    # path; launched on every exact path and on no other
+    exact = summarize("ball_query_exact", bq.EXACT,
+                      "backtoreality_tpu_torch/csrc/ball_query.cu",
+                      exact_records + layer_records,
+                      by_path("ball_query_exact"),
+                      "serving_exact")
+    exact_paths = {"serving_exact", "gf_serving_exact",
+                   *(f"pair_{p}" for p in PAIRS)}
+    launched = {p for p, n in exact["launches_by_path"].items() if n}
+    require(launched == exact_paths, f"ball_query_exact: launched on"
+            f" {sorted(launched)}, expected {sorted(exact_paths)}")
+    checked = {p for r in exact_records for p in r.get("paths", ())}
+    require(exact_paths <= checked, f"ball_query_exact: no check against"
+            f" the plain version at {exact_paths - checked}'s shapes")
+    kernels_line.append(exact)
     print("[seconds] " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
           + f"; total {sum(laps.values()):.1f}")
     print(header)

@@ -2,10 +2,17 @@
 JAX package's, on the CPU.
 
 * `ops.ball_query` equals the JAX ``ops.ball_query`` bit for bit on
-  boundary-free radii (`_boundary_free_radius`): M no multiple of the
-  chunk, a centre with no hit and one with fewer hits than slots,
-  duplicated points; float32 (the expanded form) and float64 (the direct
-  form), and against the numpy oracle of the reference's CUDA loop.
+  boundary-free radii (`chip_smoke.boundary_free_radius`): M no multiple
+  of the chunk, a centre with no hit and one with fewer hits than slots,
+  duplicated points, and the edge clouds the card's kernel is held to
+  (`chip_smoke.exact_edge_clouds`: exactly nsample hits and one more,
+  hits across a 32- and a 128-point boundary, N = 1000 and 2049,
+  nsample = 96, a centre whose only hit is point N - 1), their planted
+  rows checked; float32 (the expanded form) and float64 (the direct
+  form), and against the numpy oracle of the reference's CUDA loop. On
+  the CPU it is the plain version and launches nothing; another device
+  than the CPU or a card is refused; the kernel's entry names its source
+  and launcher, whose ctypes signature matches the C declaration.
 * `SAModuleVotes` and `SAModuleCenters` (normalized and not) in exact
   mode against the JAX modules in float64, weights bridged strictly:
   outputs to atol 1e-9 (indices exactly), and the gradient of the
@@ -22,6 +29,8 @@ JAX package's, on the CPU.
 """
 
 import gzip
+import importlib
+import re
 
 import numpy as np
 import pytest
@@ -45,11 +54,13 @@ from backtoreality_tpu_torch.models.groupfree import GroupFreeDetector
 from backtoreality_tpu_torch.models.votenet import VoteNet, VoteNetDA
 from backtoreality_tpu_torch.nn import SAModuleCenters, SAModuleVotes
 from backtoreality_tpu_torch.tools import torch_import as timport
+import chip_smoke
 from oracles import ball_query_oracle
 from test_ops import make_cloud
-from test_torch_ops import _boundary_free_radius
 
 EVIDENCE = "evidence/round5/{}/ref_init_checkpoint.tar.gz"
+# the module: the package exports the exact query under its name
+tbq = importlib.import_module("backtoreality_tpu_torch.ops.ball_query")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -69,8 +80,28 @@ def x64():
     jax.config.update("jax_enable_x64", False)
 
 
+# the kernel's edge cases (`chip_smoke.exact_edge_clouds`, the clouds the
+# smoke holds the kernel to on the card): exactly nsample hits and one
+# more, hits across a 32- and a 128-point boundary, N = 1000 and 2049,
+# nsample = 96, a centre whose only hit is point N - 1
+EDGE_KINDS = tuple(c["label"] for c in chip_smoke.exact_edge_clouds())
+
+
 def _query_case(kind, seed=0):
-    """(xyz, centres, radius, nsample) for one edge case, float32."""
+    """(xyz, centres, radius, nsample, check) for one case, float32;
+    `check(idx)` asserts the rows the case knows."""
+    if kind in EDGE_KINDS:
+        case = next(c for c in chip_smoke.exact_edge_clouds(seed)
+                    if c["label"] == kind)
+        s = case["nsample"]
+        want = np.asarray(chip_smoke.exact_expected(case["planted"], s))
+
+        def check(idx):
+            assert idx.shape == (2, 32, s)
+            for row in idx:
+                np.testing.assert_array_equal(row[:len(want)], want)
+
+        return case["xyz"], case["centres"], case["radius"], s, check
     rng = np.random.default_rng(seed)
     n, m, s = 700, 300, 16  # 300 centres: a full chunk and a padded one
     xyz = make_cloud(rng, 2, n, pad_frac=0.0, scale=1.5)
@@ -83,50 +114,84 @@ def _query_case(kind, seed=0):
     xyz[1, -3:] = [[20.0, 20.0, 20.0], [20.1, 20.0, 20.0],
                    [20.0, 20.1, 20.0]]
     centres[1, 5] = [20.0, 20.0, 20.05]
-    r = _boundary_free_radius(xyz, centres, 0.3)
-    return xyz, centres.astype(np.float32), r, s
+    r = chip_smoke.boundary_free_radius(xyz, centres, 0.3)
+
+    def check(idx):
+        assert idx.shape == (2, m, s)
+        assert (idx[0, 0] == 0).all()  # no hit: index 0 in every slot
+        row = idx[1, 5]
+        assert row[:3].tolist() == [n - 3, n - 2, n - 1]
+        assert (row[3:] == n - 3).all()  # past the count: the first hit
+
+    return xyz, centres.astype(np.float32), r, s, check
 
 
-def _check_edges(idx, n):
-    assert (idx[0, 0] == 0).all()  # no hit: index 0 in every slot
-    row = idx[1, 5]
-    assert row[:3].tolist() == [n - 3, n - 2, n - 1]
-    assert (row[3:] == n - 3).all()  # slots past the count: the first hit
-
-
-@pytest.mark.parametrize("kind", ["random", "duplicates"])
+@pytest.mark.parametrize("kind", ["random", "duplicates", *EDGE_KINDS])
 def test_ball_query_equals_jax_f32(kind):
-    xyz, centres, r, s = _query_case(kind)
+    xyz, centres, r, s, check = _query_case(kind)
     want = np.asarray(jops.ball_query(jnp.asarray(xyz), jnp.asarray(centres),
                                       r, s))
     got = tops.ball_query(torch.from_numpy(xyz), torch.from_numpy(centres),
                           r, s)
-    assert got.dtype == torch.int32 and got.shape == (2, 300, s)
+    assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
-    _check_edges(got.numpy(), xyz.shape[1])
+    check(got.numpy())
     np.testing.assert_array_equal(got.numpy(),
                                   ball_query_oracle(xyz, centres, r, s))
 
 
-@pytest.mark.parametrize("kind", ["random", "duplicates"])
+@pytest.mark.parametrize("kind", ["random", "duplicates", *EDGE_KINDS])
 def test_ball_query_equals_jax_f64(kind, x64):
     """float64 through the direct form |c - p|^2, on both sides."""
-    xyz, centres, r, s = _query_case(kind, seed=1)
+    xyz, centres, r, s, check = _query_case(kind, seed=1)
     xyz, centres = xyz.astype(np.float64), centres.astype(np.float64)
     want = np.asarray(jops.ball_query(jnp.asarray(xyz), jnp.asarray(centres),
                                       r, s))
     got = tops.ball_query(torch.from_numpy(xyz), torch.from_numpy(centres),
                           r, s)
     np.testing.assert_array_equal(got.numpy(), want)
-    _check_edges(got.numpy(), xyz.shape[1])
+    check(got.numpy())
 
 
 def test_ball_query_chunk_is_only_a_block_size():
-    xyz, centres, r, s = _query_case("random", seed=2)
+    xyz, centres, r, s, _ = _query_case("random", seed=2)
     x, c = torch.from_numpy(xyz), torch.from_numpy(centres)
     whole = tops.ball_query(x, c, r, s)
     for chunk in (1, 7, 256, 1000):
         assert torch.equal(tops.ball_query(x, c, r, s, chunk=chunk), whole)
+
+
+def test_ball_query_cpu_takes_the_plain_version():
+    """A CPU tensor runs `_ball_query_exact_torch` and launches nothing;
+    a tensor on any other device than the CPU or a card is refused."""
+    xyz, centres, r, s, _ = _query_case("straddle")
+    x, c = torch.from_numpy(xyz), torch.from_numpy(centres)
+    before = tbq.EXACT.launches, tbq.KERNEL.launches
+    assert torch.equal(tops.ball_query(x, c, r, s),
+                       tbq._ball_query_exact_torch(x, c, r, s))
+    assert (tbq.EXACT.launches, tbq.KERNEL.launches) == before
+    with pytest.raises(ValueError, match="meta"):
+        tops.ball_query(x.to("meta"), c.to("meta"), r, s)
+
+
+def test_exact_kernel_entry():
+    """The exact query's entry is a launcher of ball_query.cu, its own
+    counts, and a ctypes signature as long as the launcher's C
+    declaration."""
+    assert tbq.EXACT.kernel is tbq.KERNEL
+    assert tbq.KERNEL.source.name == "ball_query.cu"
+    assert tbq.EXACT.name == "ball_query_exact"
+    assert tbq.EXACT.replaces.startswith(
+        "backtoreality_tpu/ops/ball_query.py:71 ")
+    src = tbq.KERNEL.source.read_text()
+    decl = re.search(r"\nint bq_exact_launch\(([^)]*)\)\s*\{", src)
+    assert decl is not None
+    assert len(decl.group(1).split(",")) == len(
+        tbq.KERNEL.signatures["bq_exact_launch"])
+    # the JAX function the entry names
+    line = (chip_smoke.ROOT / "backtoreality_tpu/ops/ball_query.py"
+            ).read_text().splitlines()[70]
+    assert line.startswith("def ball_query(")
 
 
 def _sa_inputs(seed):
@@ -165,7 +230,8 @@ def _feature_grads(jmod, variables, port, args, gout):
 
 def test_sa_module_votes_exact_matches_jax_f64(x64):
     xyz, feats, _ = _sa_inputs(3)
-    r = _boundary_free_radius(xyz, xyz, 0.4)  # the centres are points
+    # the centres are points
+    r = chip_smoke.boundary_free_radius(xyz, xyz, 0.4)
     jmod = JaxSAModuleVotes(npoint=64, radius=r, nsample=16, mlp=[8, 16],
                             normalize_xyz=True, query_mode="exact",
                             dtype=jnp.float64)
@@ -190,7 +256,7 @@ def test_sa_module_votes_exact_matches_jax_f64(x64):
 @pytest.mark.parametrize("normalize", [True, False])
 def test_sa_module_centers_exact_matches_jax_f64(normalize, x64):
     xyz, feats, centres = _sa_inputs(5)
-    r = _boundary_free_radius(xyz, centres, 0.3)
+    r = chip_smoke.boundary_free_radius(xyz, centres, 0.3)
     jmod = JaxSAModuleCenters(radius=r, nsample=8, mlp=[16],
                               normalize_xyz=normalize, query_mode="exact",
                               dtype=jnp.float64)

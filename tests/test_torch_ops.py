@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from backtoreality_tpu import ops as jops
 from backtoreality_tpu.nn.sa_fp import _GroupMixin
 from backtoreality_tpu_torch import ops as tops
+from chip_smoke import boundary_free_radius
 from oracles import ball_query_stratified_oracle
 from test_ops import make_cloud, safe_radius
 
@@ -27,22 +28,6 @@ jbq = importlib.import_module("backtoreality_tpu.ops.ball_query")
 tfps = importlib.import_module("backtoreality_tpu_torch.ops.fps")
 tbq = importlib.import_module("backtoreality_tpu_torch.ops.ball_query")
 tgroup = importlib.import_module("backtoreality_tpu_torch.ops.grouping")
-
-
-def _boundary_free_radius(xyz, centers, r, margin=1e-5):
-    """Smallest radius >= r with no centre-point squared distance within
-    `margin` of r^2. The two expanded-form f32 computations round
-    differently by about 1e-6 (XLA fuses them into FMAs under jit), so a
-    point that close to the radius could fall either way."""
-    d2 = np.sort(np.sum(
-        (centers[:, :, None, :].astype(np.float64)
-         - xyz[:, None, :, :].astype(np.float64)) ** 2, axis=-1).ravel())
-    r2 = r * r
-    while True:
-        i = np.searchsorted(d2, r2 - margin)
-        if i == d2.size or d2[i] >= r2 + margin:
-            return float(np.sqrt(r2))
-        r2 = d2[i] + 2 * margin
 
 
 def _fps_cloud(seed, b, n):
@@ -197,7 +182,7 @@ class TestBallQueryStratified:
         xyz = make_cloud(rng, 2, n, pad_frac=0.0, scale=1.5)
         centers = xyz[:, :m].copy()
         centers[0, 0] = 50.0  # a centre with no neighbour at all
-        r = _boundary_free_radius(xyz, centers, r)
+        r = boundary_free_radius(xyz, centers, r)
         want_i, want_h = jbq._ball_query_stratified_xla(
             jnp.asarray(xyz), jnp.asarray(centers), r, s)
         got_i, got_h = tops.ball_query_stratified(
@@ -279,7 +264,7 @@ class TestBallQueryEdges:
     @pytest.mark.parametrize("name", _BQ_EDGE_CASES)
     def test_plain_matches_xla_and_oracle(self, name):
         xyz, centers, r, s = _bq_edge_case(name)
-        r = _boundary_free_radius(xyz, centers, r)
+        r = boundary_free_radius(xyz, centers, r)
         want_i, want_h = jbq._ball_query_stratified_xla(
             jnp.asarray(xyz), jnp.asarray(centers), r, s)
         txyz, tcenters = torch.from_numpy(xyz), torch.from_numpy(centers)
@@ -589,7 +574,7 @@ def _localize_case(seed, with_features):
     centers = xyz[:, :24].copy() + rng.normal(size=(2, 24, 3)).astype(
         np.float32) * 0.01
     centers[0, 0] = 50.0  # no neighbour at all
-    r = _boundary_free_radius(xyz, centers, 0.7)
+    r = boundary_free_radius(xyz, centers, 0.7)
     feats = (rng.normal(size=(2, 400, 6)).astype(np.float32)
              if with_features else None)
     return xyz, feats, centers, r, 8
