@@ -409,33 +409,71 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 // |c - p|^2 < r^2; slots past its count take its first hit, and a centre
 // with no hit takes index 0 in every slot.
 //
-// A warp holds a centre; a block holds kExactWarps centres of one batch row,
-// which walk the same points in the same order, so the row's points come
-// from L2 once and from L1 for the others. The warp walks the row 128
-// points at a time, 4 a lane, and a ballot per point of a lane gives the
-// hits; a hit's rank is the count so far plus the hits before it in index
-// order. The warp leaves the row once it has nsample hits (the count is the
-// same in every lane): it tests at most 127 points past the one its last
-// slot takes, and no more than the data needs otherwise. The slots need no
-// staging, so nsample has no limit.
+// What bounds it: issue slots, as the stratified query. The work depends
+// on the data: a centre scans up to its nsample-th hit (at the first layer,
+// r = 0.2 in a room, about 4/5 of its row on average). A test is 4
+// floating-point instructions (3 fused multiply-adds and a compare, the
+// stratified kernels' `inside`), |p|^2 5 more a point; everything else
+// (loads, the bookkeeping of ranks) is overhead. Two mappings, the tile of
+// each chosen per shape by ops/ball_query.py::exact_plan:
 //
-// What bounds it: the loads from L1. Lane l tests points base + 4 l + u,
-// u < 4, and the ranks count the hits of the lanes below and the lane's own
-// before u. The rows are 3 contiguous values a point (the wrapper copies a
-// strided xyz), so a lane of a 16-byte aligned row reads its 4 points with
-// three 16-byte loads (six in float64). In the chunk past the row's last
-// whole one, and in a misaligned row, it reads them value by value,
-// guarded by n.
+// * A lane holds points (`bq_exact_kernel`). A warp holds a centre; a
+//   block holds kExactWarps centres of one batch row, which walk the same
+//   points in the same order, so the row's points come from L2 once and
+//   from L1 for the others. The warp walks the row 128 points at a time, 4
+//   a lane, and a ballot per point of a lane gives the hits; a hit's rank
+//   is the count so far plus the hits before it in index order. The warp
+//   leaves the row once it has nsample hits (the count is the same in
+//   every lane): it tests at most 127 points past the one its last slot
+//   takes. The slots need no staging, so nsample has no limit, and it is
+//   templated on float64. Its price: each test pays its own |p|^2 and a
+//   third of a 16-byte load from L1, and 4 ballots and popc every 4
+//   points; a row of 40000 points (480 KB) does not fit an SM's L1, so the
+//   block's warps share only what they read close together.
+// * A lane holds centres (`bq_exact_centres_kernel<R>`, float32). A block
+//   owns 32 * R * G centres of one batch row; a lane keeps R of them as
+//   `centre_query` values in registers. Its warps are G centre groups
+//   times Q chunk groups. The block walks its row in rounds of Q chunks of
+//   kRowChunk points, each round staged once for all its warps: copied
+//   into shared memory while the round before is tested, by one
+//   cp.async.bulk (the TMA's 1-D copy, completion on an mbarrier; 16-byte
+//   cp.async, as K3 stages, measured no faster on an H100), then
+//   written into a ring of two stages as (x, y, z, |p|^2), |p|^2 taken
+//   once a point for the whole block. The
+//   copy takes the row as it lies, 3 values a point or 4 (SA1's xyz, the
+//   first 3 of each point's 4 values, needs no copy of its own first): the
+//   whole 16-byte pieces of an aligned row are copied so; the points past
+//   them, and every point of a row that is not aligned, are staged by
+//   plain loads guarded by n. Nothing is padded: bits past n are masked. Chunk group q tests chunk q of the round: a warp reads a point
+//   with one 16-byte shared load (a broadcast) and tests it against its R
+//   centres, keeping each centre's hits as bits (a word per 32 points), so
+//   a test costs 1 / R of a load and no square. The round's hit counts go
+//   to shared memory; a prefix over the Q chunks in chunk order gives each
+//   chunk's first rank, and a lane writes its set bits' indices (__ffs) at
+//   the ranks below nsample into a slot table in shared memory (stride
+//   nsample + 1). No point is tested twice. The block leaves after the
+//   round in which every one of its centres has nsample hits
+//   (__syncthreads_and): it waits for its slowest centre, at most a round
+//   past that one's last slot. The slots and the fill are written at the
+//   end, consecutive threads on consecutive addresses. The table has to
+//   fit beside the stages: the plan offers no such tile where it does not.
 //
 // The radius test is the stratified kernels' in float32 (`inside`, the
-// same operations in the same order), so a centre's first hit is the
-// global first hit those kernels' slot-fill takes, bit for bit; in float64
-// it is the plain version's direct form (dx*dx + dy*dy) + dz*dz < r^2,
-// each product and sum rounded on its own, which it equals bit for bit.
+// same operations in the same order) in both mappings, so the two give the
+// same slots bit for bit, and a centre's first hit is the global first hit
+// those kernels' slot-fill takes; in float64 it is the plain version's
+// direct form (dx*dx + dy*dy) + dz*dz < r^2, each product and sum rounded
+// on its own, which it equals bit for bit. With a counter given, the
+// tests executed are added to it: a centre's points up to its exit where
+// lanes hold points, the block's live centres times the points its rounds
+// walked (up to n) where lanes hold centres.
 
-constexpr int kExactWarps = 8;    // centres a block
+constexpr int kExactWarps = 8;    // centres a block, where lanes hold points
 constexpr int kExactPerLane = 4;  // points a lane tests between two exits
 constexpr int kExactChunk = 32 * kExactPerLane;
+constexpr int kRowChunk = 64;     // points a warp tests a round, lanes on centres
+constexpr int kRowWords = kRowChunk / 32;  // words of hit bits a centre
+constexpr int kRingStages = 2;  // rounds of squared points
 
 template <typename T>
 struct Ball;
@@ -558,6 +596,235 @@ __global__ void __launch_bounds__(kExactWarps * 32)
     atomicAdd(counter, (unsigned long long)tested);
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// arrive, expecting `bytes` from the copy that follows (0: none)
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// until the phase of `parity` has completed; a wait that never ends
+// (a copy that never lands) traps, so the launch fails instead of holding
+// the card
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  for (unsigned tries = 0;; ++tries) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory by the TMA, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A lane holds R centres; the points come from shared memory, a round of
+// `qcount` chunks at a time (see the note above).
+template <int R>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    bq_exact_centres_kernel(const float* __restrict__ xyz, long long xsb,
+                            int xsn, const float* __restrict__ ctr,
+                            long long csb, long long csn, int n, int m,
+                            float r2, int nsample, int groups,
+                            int* __restrict__ idx_out,
+                            unsigned long long* __restrict__ counter) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int qcount = (blockDim.x >> 5) / groups;  // chunk groups
+  const int g = warp % groups;
+  const int q = warp / groups;
+  const int centres = groups * 32 * R;
+  const int span = qcount * kRowChunk;  // points a round
+  const int stride = nsample + 1;       // odd for an even nsample
+  // the copy's barrier, the copied round (xsn * span floats, as in xyz),
+  // the ring [stage][span] of points as (x, y, z, |p|^2), the round's
+  // counts [chunk group][centre], the hits so far [centre], the slots
+  // [centre][stride]
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
+  float* raw = reinterpret_cast<float*>(smem + 16);
+  float4* ring = reinterpret_cast<float4*>(raw + 4 * span);
+  int* counts = reinterpret_cast<int*>(ring + kRingStages * span);
+  int* total = counts + qcount * centres;
+  int* slots = total + centres;
+
+  const int b = blockIdx.y;
+  const int m0 = blockIdx.x * centres;
+  float4 cq[R];  // centre_query of each centre (nothing is inside a dead one)
+  bool alive[R];
+  int have[R];  // hits so far, the same in each chunk group
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int c = m0 + g * 32 * R + r * 32 + lane;
+    alive[r] = c < m;
+    cq[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (alive[r]) cq[r] = centre_query(ctr + b * csb + c * csn, r2);
+    have[r] = 0;
+  }
+  const float* row = xyz + b * xsb;
+  const bool aligned = reinterpret_cast<uintptr_t>(row) % 16 == 0;
+  const int rounds = (n + span - 1) / span;
+  if (tid == 0) {
+    mbar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // round k into `raw`, as the row lays it out: where the row is aligned,
+  // its whole 16-byte pieces (a point each at 4 values a point, but the
+  // row's last, whose fourth value may lie past the tensor; the whole
+  // 4-point groups at 3) by the bulk copy, the rest's coordinates by
+  // plain loads
+  auto copy = [&](int k) {
+    const int base = k * span;
+    const int len = min(span, n - base);
+    const int vec = !aligned      ? 0
+                    : xsn == 3    ? len & ~3
+                    : base + len == n ? len - 1
+                                      : len;
+    const float* src = row + (long long)xsn * base;
+    if (tid == 0) {
+      // every thread's reads and writes of `raw` come before
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect(bar, vec * xsn * 4);
+      if (vec > 0) bulk_copy(raw, src, vec * xsn * 4, bar);
+    }
+    for (int i = vec * xsn + tid; i < len * xsn; i += blockDim.x)
+      if (i % xsn < 3) raw[i] = __ldg(src + i);
+  };
+  // the copied round k into its stage, |p|^2 taken once a point
+  auto square = [&](int k) {
+    float4* dst = ring + (k % kRingStages) * span;
+    const int len = min(span, n - k * span);
+    for (int i = tid; i < len; i += blockDim.x) {
+      const float* v = raw + xsn * i;
+      const float x = v[0], y = v[1], z = v[2];
+      dst[i] = make_float4(x, y, z, sq3(x, y, z));
+    }
+  };
+
+  copy(0);
+  mbar_wait(bar, 0);
+  __syncthreads();
+  square(0);
+  __syncthreads();
+  int walked = 0;
+  for (int k = 0;; ++k) {
+    // `raw` was squared before the last barrier
+    if (k + 1 < rounds) copy(k + 1);
+    const int base = k * span + q * kRowChunk;
+    const int lim = n - base;  // points of the chunk below n (may be <= 0)
+    unsigned bits[R][kRowWords];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int w = 0; w < kRowWords; ++w) bits[r][w] = 0;
+    if (lim > 0) {
+      const float4* pts = ring + (k % kRingStages) * span + q * kRowChunk;
+#pragma unroll
+      for (int j = 0; j < kRowChunk; ++j) {
+        const float4 p = pts[j];  // a broadcast
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float d;
+          if (inside(cq[r], p.x, p.y, p.z, p.w, d))
+            bits[r][j / 32] |= 1u << (j % 32);
+        }
+      }
+      if (lim < kRowChunk) {  // the points past n were never staged
+#pragma unroll
+        for (int w = 0; w < kRowWords; ++w) {
+          const int valid = min(max(lim - 32 * w, 0), 32);
+          const unsigned mask = valid == 32 ? kFull : (1u << valid) - 1;
+#pragma unroll
+          for (int r = 0; r < R; ++r) bits[r][w] &= mask;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      int cnt = 0;
+#pragma unroll
+      for (int w = 0; w < kRowWords; ++w) cnt += __popc(bits[r][w]);
+      counts[q * centres + g * 32 * R + r * 32 + lane] = cnt;
+    }
+    if (k + 1 < rounds) mbar_wait(bar, (k + 1) & 1);
+    // the counts are in, and the next round's copy has landed
+    __syncthreads();
+    if (k + 1 < rounds) square(k + 1);
+    // ranks: the hits so far, then the chunks before this one in order
+    bool done = true;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int c = g * 32 * R + r * 32 + lane;
+      int rank = have[r];
+      for (int qq = 0; qq < qcount; ++qq) {
+        const int v = counts[qq * centres + c];
+        if (qq < q) rank += v;
+        have[r] += v;
+      }
+#pragma unroll
+      for (int w = 0; w < kRowWords; ++w) {
+        for (unsigned word = bits[r][w]; word != 0 && rank < nsample;
+             word &= word - 1)
+          slots[c * stride + rank++] = base + 32 * w + __ffs(word) - 1;
+      }
+      done = done && (!alive[r] || have[r] >= nsample);
+    }
+    // every warp is done with the counts and this round's stage, and the
+    // next round is squared into its own
+    if (__syncthreads_and(done) || k + 1 == rounds) {
+      walked = min((k + 1) * span, n);
+      break;
+    }
+  }
+  if (q == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) total[g * 32 * R + r * 32 + lane] = have[r];
+  }
+  __syncthreads();
+  const int rows = min(centres, m - m0);
+  int* out = idx_out + ((long long)b * m + m0) * nsample;
+  for (int e = tid; e < rows * nsample; e += blockDim.x) {
+    const int c = e / nsample;
+    const int s = e - c * nsample;
+    const int t = total[c];
+    out[e] = s < t ? slots[c * stride + s] : t > 0 ? slots[c * stride] : 0;
+  }
+  if (counter != nullptr && tid == 0)
+    atomicAdd(counter, (unsigned long long)rows * walked);
+}
+
 }  // namespace
 
 extern "C" {
@@ -632,32 +899,76 @@ int bq_stratified_launch(const float* xyz, long long xsb, long long xsn,
 }
 
 // The exact first-k query. xyz: row b, point i, coordinate k at
-// xyz[b*xsb + 3*i + k]; centres as above, with (csb, csn); float32 (`dbl`
+// xyz[b*xsb + xsn*i + k], xsn 3 (4 too where lanes hold centres: SA1's
+// xyz, the first 3 of each point's 4 values); centres as above, with
+// (csb, csn); float32 (`dbl`
 // 0) or float64 (`dbl` 1), r2 = radius^2 as a double (rounded to float32
-// for float32 inputs); idx (b, m, nsample) int32, contiguous. `counter`,
-// if not null, receives the distance tests executed (added to what it
-// holds).
+// for float32 inputs); idx (b, m, nsample) int32, contiguous.
 //
-// Returns the cudaError_t of the launch (0 on success).
-int bq_exact_launch(const void* xyz, long long xsb, const void* ctr,
-                    long long csb, long long csn, int b, int n, int m,
-                    double r2, int nsample, int dbl, int* idx,
+// The tile: `mapping` 1, a lane holds points: `centres` and `warps` both
+// kExactWarps, `per_lane` 1; `mapping` 0, a lane holds centres
+// (float32 only): `per_lane` (1, 2 or 4) centres a lane, `centres` a block
+// (a multiple of 32 * per_lane, at most 256), `warps` (at most 16) a
+// multiple of its centres / (32 * per_lane) centre groups, and the
+// stages, the counts and the slot table within 99 KB of shared memory. `counter`, if not null,
+// receives the distance tests executed (added to what it holds).
+//
+// Returns the cudaError_t of the launch (0 on success); any other tile is
+// cudaErrorInvalidValue.
+int bq_exact_launch(const void* xyz, long long xsb, long long xsn,
+                    const void* ctr, long long csb, long long csn, int b,
+                    int n, int m,
+                    double r2, int nsample, int dbl, int mapping,
+                    int centres, int warps, int per_lane, int* idx,
                     unsigned long long* counter, void* stream) {
   if (b <= 0 || b > 65535 || n <= 0 || m <= 0 || nsample <= 0 ||
       (dbl != 0 && dbl != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((m + kExactWarps - 1) / kExactWarps, b);
-  if (dbl)
-    bq_exact_kernel<double><<<grid, kExactWarps * 32, 0, st>>>(
-        static_cast<const double*>(xyz), xsb,
-        static_cast<const double*>(ctr), csb, csn, n, m, r2, nsample, idx,
-        counter);
-  else
-    bq_exact_kernel<float><<<grid, kExactWarps * 32, 0, st>>>(
-        static_cast<const float*>(xyz), xsb,
-        static_cast<const float*>(ctr), csb, csn, n, m, r2, nsample, idx,
-        counter);
+  if (mapping == 1) {
+    if (xsn != 3 || centres != kExactWarps || warps != kExactWarps ||
+        per_lane != 1)
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid((m + kExactWarps - 1) / kExactWarps, b);
+    if (dbl)
+      bq_exact_kernel<double><<<grid, kExactWarps * 32, 0, st>>>(
+          static_cast<const double*>(xyz), xsb,
+          static_cast<const double*>(ctr), csb, csn, n, m, r2, nsample, idx,
+          counter);
+    else
+      bq_exact_kernel<float><<<grid, kExactWarps * 32, 0, st>>>(
+          static_cast<const float*>(xyz), xsb,
+          static_cast<const float*>(ctr), csb, csn, n, m, r2, nsample, idx,
+          counter);
+    return (int)cudaGetLastError();
+  }
+  if (mapping != 0 || dbl != 0 || (xsn != 3 && xsn != 4) ||
+      (per_lane != 1 && per_lane != 2 && per_lane != 4) || centres < 1 ||
+      centres > kMaxCentres || centres % (32 * per_lane) != 0 ||
+      warps < 1 || warps > kMaxWarps)
+    return (int)cudaErrorInvalidValue;
+  const int groups = centres / (32 * per_lane);
+  if (warps % groups != 0) return (int)cudaErrorInvalidValue;
+  const long long span = (long long)(warps / groups) * kRowChunk;
+  const long long bytes =
+      16 + 4 * span * (long long)sizeof(float) +
+      kRingStages * span * (long long)sizeof(float4) +
+      ((warps / groups) * (long long)centres + centres +
+       (long long)centres * (nsample + 1)) * (long long)sizeof(int);
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = per_lane == 1   ? &bq_exact_centres_kernel<1>
+                : per_lane == 2 ? &bq_exact_centres_kernel<2>
+                                : &bq_exact_centres_kernel<4>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((m + centres - 1) / centres, b);
+  kernel<<<grid, warps * 32, bytes, st>>>(
+      static_cast<const float*>(xyz), xsb, (int)xsn,
+      static_cast<const float*>(ctr), csb, csn, n, m, (float)r2, nsample,
+      groups, idx, counter);
   return (int)cudaGetLastError();
 }
 

@@ -31,18 +31,21 @@ ball_query.py:71-135``), has two implementations too:
 
 * :func:`_ball_query_exact_torch` — the plain version, a chunked top-k
   over an ordering key (the JAX function's counterpart);
-* :func:`_ball_query_exact_cuda` — the hand-written kernel of
-  ``csrc/ball_query.cu`` (``bq_exact_launch``): a warp per centre walks
-  the points in index order and leaves at its `nsample`-th hit, with the
-  stratified kernels' radius test in float32 and the plain version's
-  direct form in float64.
+* :func:`_ball_query_exact_cuda` — the hand-written kernels of
+  ``csrc/ball_query.cu`` (``bq_exact_launch``), in two mappings that give
+  the same slots bit for bit: a warp per centre walks the points in index
+  order and leaves at its `nsample`-th hit (lanes on points, float32 and
+  float64), or a block stages its row in shared memory a round at a time
+  (one ``cp.async.bulk`` a round) and a lane holds centres (float32),
+  with the stratified kernels' radius
+  test in float32 and the plain version's direct form in float64.
 
 How a CUDA call is laid out on the card is decided by its shape alone
-(:func:`plan`): which of the source's two mappings it takes (a lane holds
-centres and the points come from shared memory, or a lane holds points
-and the warp finds the first hit by vote), the centres and warps of a
-block, and the centres a lane holds. :func:`tiles` lists every tile the
-plan may pick for a shape.
+(:func:`plan`, :func:`exact_plan`): which of the source's two mappings it
+takes (a lane holds centres and the points come from shared memory, or a
+lane holds points and the warp finds its hits by vote), the centres and
+warps of a block and the centres a lane holds. :func:`tiles` and
+:func:`exact_tiles` list every tile the plans may pick for a shape.
 """
 
 from __future__ import annotations
@@ -70,13 +73,15 @@ KERNEL = _build.Kernel(
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p],
-        # xyz (rows of 3 contiguous values) and its batch stride, centres
-        # and their two strides, b, n, m, r^2, nsample, whether float64,
-        # idx, counter of executed tests (or null), stream
+        # xyz (rows of 3 or 4 contiguous values) and its two strides,
+        # centres and theirs, b, n, m, r^2, nsample, whether float64, the
+        # tile (mapping, centres, warps, per_lane), idx, counter of
+        # executed tests (or null), stream
         "bq_exact_launch": [
-            ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p],
     })
@@ -104,6 +109,11 @@ _CENTRE_LANES_WORK = 1 << 20
 CENTRES_IN_LANES = 0  # points from shared memory, several centres a lane
 POINTS_IN_LANES = 1  # a vote per 128 points, centres from shared memory
 
+# the exact query's (`bq_exact_launch`)
+_EXACT_WARPS = 8  # kExactWarps: centres and warps a block, lanes on points
+_ROW_CHUNK = 64  # kRowChunk: points a warp tests a round, lanes on centres
+_RING_STAGES = 2  # kRingStages
+
 
 class Plan(NamedTuple):
     """The tile of one ball-query call: the mapping, the centres and warps
@@ -127,7 +137,7 @@ def smem_bytes(tile: Plan, nsample: int) -> int:
     return table + 16 * tile.centres
 
 
-def blocks(tile: Plan, b: int, m: int) -> int:
+def blocks(tile: Plan | ExactTile, b: int, m: int) -> int:
     return b * -(-m // tile.centres)
 
 
@@ -208,6 +218,122 @@ def plan(b: int, n: int, m: int, nsample: int) -> Plan:
     points = [t for t in options if t.mapping == POINTS_IN_LANES]
     return (_widest_filling(points, b, m)
             or min(points, key=lambda t: t.centres))
+
+
+class ExactTile(NamedTuple):
+    """The tile of one exact-query call: the mapping, the centres and warps
+    of a block, and the centres a lane holds (1 where lanes hold
+    points)."""
+
+    mapping: int
+    centres: int
+    warps: int
+    per_lane: int
+
+
+EXACT_POINTS = ExactTile(POINTS_IN_LANES, _EXACT_WARPS, _EXACT_WARPS, 1)
+
+
+def exact_span(tile: ExactTile) -> int:
+    """Points a round of a lanes-on-centres tile: a chunk a chunk group."""
+    return tile.warps // (tile.centres // (32 * tile.per_lane)) * _ROW_CHUNK
+
+
+def exact_smem_bytes(tile: ExactTile, nsample: int) -> int:
+    """Shared memory of a block, as the launcher computes it: none where
+    lanes hold points; else the copy's barrier, the copied round (up to 4
+    values a point), the ring of squared rounds (16 bytes a point), the
+    round's counts a chunk group, the hits so far and the slot table."""
+    if tile.mapping == POINTS_IN_LANES:
+        return 0
+    span = exact_span(tile)
+    chunk_groups = span // _ROW_CHUNK
+    return (16 + 4 * span * 4 + _RING_STAGES * span * 16
+            + 4 * (chunk_groups * tile.centres + tile.centres
+                   + tile.centres * (nsample + 1)))
+
+
+@functools.lru_cache(maxsize=None)
+def exact_tiles(b: int, n: int, m: int, nsample: int,
+                dtype: torch.dtype) -> tuple[ExactTile, ...]:
+    """Every tile :func:`exact_plan` may pick for a (b, n, m, nsample)
+    call computed in `dtype`, all inside the limits `bq_exact_launch`
+    checks. Lanes on points always (a warp a centre, 8 a block). Lanes on
+    centres in float32 alone (the kernel is not templated on float64):
+    1, 2 or 4 centres a lane, one or two centre groups a block, as many
+    chunk groups as make 8 warps (fewer where the row has fewer chunks);
+    none wider than the
+    centres of a row, none whose slot table does not fit beside the ring
+    (which keeps lanes on points free of a slot limit), and none at
+    nsample 1, where a centre's first hit ends its scan (lanes on points
+    leave each centre there; a block of lanes on centres waits for its
+    slowest)."""
+    del b  # the tiles depend on a row's shape alone
+    found = [EXACT_POINTS]
+    if dtype == torch.float32 and nsample > 1:
+        widest = min(max(32, _pow2_ceil(m)), _MAX_CENTRES)
+        chunks = -(-n // _ROW_CHUNK)
+        for per_lane in _PER_LANE:
+            for groups in (1, 2):
+                centres = 32 * per_lane * groups
+                if centres > widest:
+                    continue
+                warps = groups * min(8 // groups, _pow2_floor(chunks))
+                found.append(ExactTile(CENTRES_IN_LANES, centres, warps,
+                                       per_lane))
+    return tuple(t for t in found
+                 if exact_smem_bytes(t, nsample) <= _MAX_SMEM)
+
+
+@functools.lru_cache(maxsize=None)
+def exact_plan(b: int, n: int, m: int, nsample: int,
+               dtype: torch.dtype) -> ExactTile:
+    """The tile of a (b, n, m, nsample) exact-query call computed in
+    `dtype`.
+
+    Lanes on centres wherever :func:`exact_tiles` offers them: 64 centres
+    a block, 2 a lane, where that gives every SM a block, else 32 centres,
+    1 a lane. Lanes on points elsewhere (float64, nsample 1, a slot table
+    that does not fit). On an H100 every tile of lanes on centres at or
+    under 64 centres beats lanes on points at the first layers' shapes,
+    and the 32-centre tile ties or beats it at the small ones; 2 centres a
+    lane save a tenth at the first layers, where each SM still gets a
+    block (every tile's time at every path shape: ``chip_smoke.py``'s
+    ``[exact query]``, PERF.md §6)."""
+    tiles = exact_tiles(b, n, m, nsample, dtype)
+    for centres, per_lane in ((64, 2), (32, 1)):
+        for t in tiles:
+            if (t.mapping == CENTRES_IN_LANES
+                    and (t.centres, t.per_lane) == (centres, per_lane)
+                    and (centres == 32
+                         or blocks(t, b, m) >= _SMS)):
+                return t
+    return EXACT_POINTS
+
+
+def exact_walked(idx: torch.Tensor, tile: ExactTile, n: int) -> int:
+    """The distance tests a lanes-on-centres tile executes, from its own
+    output `idx` (B, M, S), S > 1: each block walks whole rounds up to the
+    one that holds the last S-th hit among its centres, or its whole row
+    of `n` points where a centre has fewer than S hits (a centre has S
+    hits iff slot S - 1 differs from slot 0), and tests each point walked
+    against each of its centres."""
+    if tile.mapping != CENTRES_IN_LANES or idx.shape[-1] < 2:
+        raise ValueError("the walk is defined for lanes on centres at"
+                         " nsample > 1")
+    b, m, s = idx.shape
+    full = idx[..., s - 1] != idx[..., 0]
+    last = torch.where(full, idx[..., s - 1].long(), n - 1)
+    blocks = -(-m // tile.centres)
+    last = torch.nn.functional.pad(last, (0, blocks * tile.centres - m),
+                                   value=-1)
+    last = last.view(b, blocks, tile.centres).amax(-1)
+    span = exact_span(tile)
+    walked = torch.clamp((last // span + 1) * span, max=n)
+    rows = torch.full((blocks,), tile.centres, dtype=torch.long,
+                      device=idx.device)
+    rows[-1] = m - (blocks - 1) * tile.centres
+    return int((walked * rows).sum())
 
 
 def _sq3_sum(v: torch.Tensor) -> torch.Tensor:
@@ -355,31 +481,39 @@ def _ball_query_exact_torch(xyz, new_xyz, radius, nsample,
     return torch.cat(outs, dim=1)[:, :m]
 
 
-def _ball_query_exact_cuda(xyz, new_xyz, radius, nsample, counter=None):
+def _ball_query_exact_cuda(xyz, new_xyz, radius, nsample,
+                           tile: ExactTile | None = None, counter=None):
     """The kernel on CUDA tensors, in float64 for float64 `xyz`, else in
     float32 (both inputs cast to it, as the plain version casts them);
-    `counter`, a one-element int64 CUDA tensor, has the distance tests
-    executed added to it."""
+    `tile` overrides :func:`exact_plan` (for checks and measurements of
+    the other tiles; one the launcher refuses raises), and `counter`, a
+    one-element int64 CUDA tensor, has the distance tests executed added
+    to it."""
     ct = torch.float64 if xyz.dtype == torch.float64 else torch.float32
     _check_clouds(xyz, new_xyz)
     if nsample <= 0:
         raise ValueError(f"nsample must be positive, got {nsample}")
     xyz = xyz.to(ct)
     new_xyz = new_xyz.to(ct)
-    # the kernel reads a row's points 4 at a time as whole 16-byte words:
-    # rows of 3 contiguous values (SA1's xyz, the first 3 of each point's 4
-    # values, is copied)
-    if xyz.stride(-1) != 1 or xyz.stride(-2) != 3:
-        xyz = xyz.contiguous()
-    new_xyz = new_xyz if new_xyz.stride(-1) == 1 else new_xyz.contiguous()
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
+    if tile is None:
+        tile = exact_plan(b, n, m, nsample, ct)
+    # the kernels read a row's points as whole 16-byte words: rows of 3
+    # contiguous values, or 4 where lanes hold centres (SA1's xyz, the
+    # first 3 of each point's 4 values, is read as it lies; lanes on points
+    # take a copy)
+    rows = (3,) if tile.mapping == POINTS_IN_LANES else (3, 4)
+    if xyz.stride(-1) != 1 or xyz.stride(-2) not in rows:
+        xyz = xyz.contiguous()
+    new_xyz = new_xyz if new_xyz.stride(-1) == 1 else new_xyz.contiguous()
     idx = torch.empty(b, m, nsample, dtype=torch.int32, device=xyz.device)
     err = KERNEL.lib.bq_exact_launch(
-        _build.ptr(xyz), xyz.stride(0),
+        _build.ptr(xyz), xyz.stride(0), xyz.stride(1),
         _build.ptr(new_xyz), new_xyz.stride(0), new_xyz.stride(1),
         b, n, m, radius * radius, nsample, int(ct == torch.float64),
-        _build.ptr(idx), None if counter is None else _build.ptr(counter),
+        *tile, _build.ptr(idx),
+        None if counter is None else _build.ptr(counter),
         _build.stream_of(xyz))
     _build.check(err, "bq_exact_launch")
     EXACT.launches += 1

@@ -161,7 +161,9 @@ gated on two steps from one state giving bitwise-equal parameters.
    loss over epochs 40-49 lies within 0.67-1.5 times the JAX run's and
    mAP@0.25 at epoch 49 reaches 0.30.
 8. ``--query_mode exact``, the reference's first-k query (``ops.ball_query``,
-   the kernel ``bq_exact_launch`` of ``csrc/ball_query.cu`` on the card).
+   the kernels of ``bq_exact_launch`` in ``csrc/ball_query.cu`` on the
+   card: lanes on centres, the row staged in shared memory, or lanes on
+   points; the tile by ``ops/ball_query.py::exact_plan``).
    The reference's initial
    checkpoints in the repo (``evidence/round5/{wsb,br,gf}/
    ref_init_checkpoint.tar.gz``) converted by the port's
@@ -173,16 +175,22 @@ gated on two steps from one state giving bitwise-equal parameters.
    input those servings gave it (the five VoteNet layers, GF's SA1) and
    on the edge clouds of ``exact_edge_clouds`` (exactly S hits and S + 1,
    hits across a 32- and a 128-point boundary, N = 1000 and 2049,
-   S = 96, a centre whose only hit is the last point): against the plain
-   version on the card and on the CPU, equal except at centres whose first
-   differing slot holds a point within K3's rounding rule of the radius
-   (counted; none on the edge clouds, whose planted rows are checked), the
-   plain version on the card against the CPU within 1e-5 r^2; slot 0
-   bitwise K3's global first hit; the tests executed (its counter) within
-   127 a centre of those the data needs; float64 bitwise the plain float64
+   S = 96, a centre whose only hit is the last point, a block's centres
+   leaving far apart, S-th hits at both ends of a staged chunk and of a
+   round, a row shorter than a chunk, 33 centres a row): every tile of
+   ``exact_tiles`` bitwise equal to the others; the plan's against the
+   plain version on the card and on the CPU, equal except at centres whose
+   first differing slot holds a point within K3's rounding rule of the
+   radius (counted; none on the edge clouds, whose planted rows are
+   checked), the plain version on the card against the CPU within 1e-5
+   r^2; slot 0 bitwise K3's global first hit; each tile's tests executed
+   (its counter) at least those the data needs, within 127 a centre of
+   them where lanes hold points and exactly the walk of its blocks over
+   its own output (``ops.ball_query.exact_walked``) where they hold
+   centres; float64 bitwise the plain float64
    version at SA1, SA3 and the edge clouds; bfloat16 and float16 taken as
-   float32; timed beside the plain version, K3 and the bound, with its
-   peak memory. Then the round-5 system-parity pairs (WSB, BR,
+   float32; the plan's tile and every tile timed beside the plain version,
+   K3 and the bound, with its peak memory. Then the round-5 system-parity pairs (WSB, BR,
    CenterRefine, GF), in a process of their own (``--child pairs``)
    beside the learning check and ``[datagen -> br]``, on the ``parity``
    and ``br`` fixtures of the port's
@@ -738,21 +746,22 @@ def boundary_free_radius(xyz, centres, r, margin=1e-5):
 
 def exact_edge_clouds(seed=0):
     """The exact first-k query's edge cases, what its scan and its tail
-    can get wrong, as dicts of label, xyz (2, N, 3) and centres (2, 32, 3)
-    float32 numpy arrays, radius and nsample, and `planted`: the hit
-    indices of the first centres of each row, which sit alone at (20 + 5k,
-    20, 20) with their hits within 0.05 of them (the other centres and
-    points lie in [0, 2)^3, the radius is boundary-free). The CPU tests
-    hold the port against the JAX package on these clouds, the smoke the
-    kernel against the plain version."""
+    can get wrong, as dicts of label, xyz (2, N, 3) and centres (2, M, 3)
+    float32 numpy arrays (M = 32 unless a case says otherwise), radius and
+    nsample, and `planted`: the hit indices of the first centres of each
+    row, which sit alone at (20 + 5k, 20, 20) with their hits within 0.05
+    of them (the other centres and points lie in [0, 2)^3, the radius is
+    boundary-free). The CPU tests hold the port against the JAX package on
+    these clouds, the smoke every tile of the kernel against the plain
+    version."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
 
-    def case(label, n, nsample, r, planted):
+    def case(label, n, nsample, r, planted, m=32):
         xyz = rng.random((2, n, 3)) * 2.0
-        centres = xyz[:, rng.permutation(n)[:32]] + rng.normal(
-            size=(2, 32, 3)) * 0.05
+        centres = xyz[:, rng.permutation(n)[:m]] + rng.normal(
+            size=(2, m, 3)) * 0.05
         for k, hits in enumerate(planted):
             at = np.array([20.0 + 5 * k, 20.0, 20.0])
             centres[:, k] = at
@@ -772,6 +781,33 @@ def exact_edge_clouds(seed=0):
             pool = pool[k:]
         return out
 
+    def ending_at(keys, nsample):
+        """A hit list for each of `keys` whose nsample-th hit is that key,
+        the earlier hits drawn below it, all lists disjoint."""
+        used, out = set(keys), []
+        for key in keys:
+            free = [j for j in range(key) if j not in used]
+            early = sorted(rng.choice(free, nsample - 1,
+                                      replace=False).tolist())
+            used.update(early)
+            out.append([*early, key])
+        return out
+
+    def round_edges():
+        """Lanes on centres stage chunks of 64 points, rounds of 256 or 512
+        (4 or 8 chunk groups): nsample-th hits at both ends of each, every
+        centre planted, so that a block leaves as early as its slowest
+        centre lets it (with 32 centres a block, the first block after
+        point 511, the second after 1024)."""
+        first = [63, 64, 127, 128, 255, 256, 447, 448, 511]
+        first += rng.choice(np.setdiff1d(np.arange(200, 511), first),
+                            32 - len(first), replace=False).tolist()
+        second = [512, 575, 576, 767, 768, 1023, 1024]
+        second += rng.choice(np.setdiff1d(np.arange(600, 1024), second),
+                             32 - len(second), replace=False).tolist()
+        return case("round_edges", 2049, 8, 0.3,
+                    ending_at(first + second, 8), m=64)
+
     return [
         # no hit; exactly nsample hits; nsample + 1
         case("s_hits", 1000, 16, 0.3, [[], *scattered(1000, 16)]),
@@ -788,6 +824,19 @@ def exact_edge_clouds(seed=0):
         case("s96", 3000, 96, 0.45, scattered(3000, 97, 95)),
         # a centre whose only hit is point N - 1
         case("last_only", 2049, 64, 0.3, [[2048], []]),
+        # one block's centres leaving far apart: all nsample hits in the
+        # first chunk, none, the nsample-th at the row's last point
+        case("leave_apart", 2049, 16, 0.3, [
+            sorted(rng.choice(64, 16, replace=False).tolist()), [],
+            sorted((64 + rng.choice(1984, 15, replace=False)).tolist())
+            + [2048]]),
+        round_edges(),
+        # a row shorter than one chunk, the last hit its last point
+        case("n50", 50, 8, 0.3, [[3, 10, 20, 30, 40, 45, 48, 49], []]),
+        # 33 centres, all planted: a block of one centre past any tile's
+        # centres; 15, 16 or 17 hits each
+        case("m33", 1000, 16, 0.3,
+             scattered(1000, *[15 + k % 3 for k in range(33)]), m=33),
     ]
 
 
@@ -3264,12 +3313,16 @@ def exact_query_phase(calls, bq, reps):
     from the radius (counted; none where `planted`, a list, gives
     boundary-free edge clouds with known rows), and the plain version on
     the card against the CPU within EXACT_GAP_REL; its slot 0 bitwise K3's
-    global first hit (the same radius test); the tests it executed (its
-    counter) at least those the data needs and at most 127 a centre more;
-    with `f64`, the float64 instantiation bitwise the plain float64
-    version. With `reps`, the kernel, the plain version and K3 timed (CUDA
-    events) beside the bound, and the kernel's peak memory. Returns the
-    records."""
+    global first hit (the same radius test); every tile of `exact_tiles`
+    bitwise equal to the plan's, each with the tests it executed (its
+    counter) at least those the data needs: where lanes hold points at
+    most 127 a centre more, where lanes hold centres exactly the walk its
+    own output gives (`exact_walked`: a block waits for its slowest
+    centre); with `f64`, the float64 instantiation bitwise the plain
+    float64 version. With `reps`, the kernel (the plan's tile through
+    `ops.ball_query`, and every tile), the plain version and K3 timed
+    (CUDA events) beside the bound, and the kernel's peak memory. Returns
+    the records."""
     import torch
 
     records = []
@@ -3319,14 +3372,36 @@ def exact_query_phase(calls, bq, reps):
         slot0 = int((got[..., 0] != k3_first).sum().item())
         require(slot0 == 0, f"exact query {label}: slot 0 differs from K3's"
                 f" first hit at {slot0} centres")
-        counter = torch.zeros(1, dtype=torch.int64, device=xyz.device)
-        bq._ball_query_exact_cuda(xyz, ctr, radius, nsample, counter)
-        executed = counter.item()
         tests = exact_tests_needed(bq, xyz, ctr, radius, nsample)
         slack = n * max(cpu_off, card_off)  # centres at the radius
-        require(tests - slack <= executed <= tests + 127 * b * m + slack,
-                f"exact query {label}: {executed} tests executed, the data"
-                f" needs {tests}")
+        ct = torch.float64 if xyz.dtype == torch.float64 else torch.float32
+        chosen = bq.exact_plan(b, n, m, nsample, ct)
+        tiles = bq.exact_tiles(b, n, m, nsample, ct)
+        require(chosen in tiles, f"exact query {label}: the plan's tile"
+                f" {chosen} is not among the tiles checked")
+        per_tile = []
+        for tile in tiles:
+            name = tile_name(bq, tile)
+            counter = torch.zeros(1, dtype=torch.int64, device=xyz.device)
+            out = bq._ball_query_exact_cuda(xyz, ctr, radius, nsample, tile,
+                                            counter)
+            require(torch.equal(out, got), f"exact query {label} [{name}]:"
+                    " slots differ from the plan's tile")
+            ran = counter.item()
+            require(ran >= tests - slack, f"exact query {label} [{name}]:"
+                    f" {ran} tests executed, the data needs {tests}")
+            if tile.mapping == bq.CENTRES_IN_LANES:
+                walked = bq.exact_walked(out, tile, n)
+                require(ran == walked, f"exact query {label} [{name}]:"
+                        f" {ran} tests executed, its blocks' walk over its"
+                        f" own slots is {walked}")
+            else:
+                require(ran <= tests + 127 * b * m + slack,
+                        f"exact query {label} [{name}]: {ran} tests"
+                        f" executed, the data needs {tests}")
+            per_tile.append(dict(tile=tuple(tile), name=name, executed=ran))
+        executed = next(r["executed"] for r in per_tile
+                        if r["tile"] == tuple(chosen))
         f64_off = None
         if f64:
             x64, c64 = xyz.double(), ctr.double()
@@ -3343,15 +3418,17 @@ def exact_query_phase(calls, bq, reps):
                    boundary_centres=max(cpu_off, card_off),
                    max_gap_rel=gap_rel, max_gap_ulps=unit, max_abs_err=gap,
                    tests_needed=tests, executed=executed, peak_mib=peak,
-                   f64_slots_differ=f64_off, library_ms=None)
+                   f64_slots_differ=f64_off, library_ms=None,
+                   tile=tile_name(bq, chosen), tiles=per_tile)
         text = (f"  {label:24s} B={b} N={n} M={m} S={nsample} r={radius}"
                 f" (points {xyz.stride(1)} values apart):"
                 f" kernel equal to the plain version (card and CPU) but"
                 f" {rec['boundary_centres']} centres at the radius (max"
                 f" {gap_rel:.2e} r^2, {unit:.2f} ulps of (|c| + |p|)^2;"
                 f" plain card / CPU: {plain_off} centres, max"
-                f" {plain_rel:.2e} r^2); slot 0 = K3's first hit; {executed}"
-                f" tests executed, {tests} needed"
+                f" {plain_rel:.2e} r^2); slot 0 = K3's first hit;"
+                f" {len(tiles)} tiles bitwise equal, plan [{rec['tile']}]:"
+                f" {executed} tests executed, {tests} needed"
                 + ("" if f64_off is None else "; float64 bitwise equal"))
         if reps:
             bnd, by = bound_ms(BQ_OPS_PER_TEST * tests,
@@ -3365,12 +3442,22 @@ def exact_query_phase(calls, bq, reps):
                 lambda: bq._ball_query_stratified_cuda(xyz, ctr, radius,
                                                        nsample),
                 reps, ahead=True)
+            for r in per_tile:
+                tile = bq.ExactTile(*r["tile"])
+                r["ms"] = cuda_ms(lambda: bq._ball_query_exact_cuda(
+                    xyz, ctr, radius, nsample, tile), reps, ahead=True)
             k3 = ("K3 --" if rec["k3_ms"] is None
                   else f"K3 {rec['k3_ms']:.4f} ms")
             text += (f"\n      kernel {rec['ms']:.4f} ms, plain"
                      f" {rec['plain_ms']:.3f} ms"
                      f" ({rec['plain_ms'] / rec['ms']:.1f}x), {k3}, bound"
                      f" {bnd:.4f} ms ({by}), peak {peak:.2f} MiB")
+        for r in per_tile:
+            text += (f"\n      [{r['name']}]"
+                     + (f" {r['ms']:.4f} ms," if "ms" in r else "")
+                     + f" {r['executed']} tests executed"
+                     f" ({r['executed'] / max(tests, 1):.4f} of needed)"
+                     + (" <- plan" if r["tile"] == tuple(chosen) else ""))
         records.append(rec)
         print(text)
     return records

@@ -332,6 +332,127 @@ class TestBallQueryPlan:
         assert tbq.smem_bytes(points, 16) == 4 * (32 * 17 + 32) + 16 * 32
 
 
+# the exact query's calls on the exact paths (B=8 f32): VoteNet SA1-SA4
+# and the vote aggregation, GF SA1, the pairs' SA1 (2500 and 1500 points)
+_EXACT_PATH_SHAPES = [(8, 40000, 2048, 64), (8, 2048, 1024, 32),
+                      (8, 1024, 512, 16), (8, 512, 256, 16),
+                      (8, 1024, 256, 16), (8, 50000, 2048, 64),
+                      (8, 2500, 2048, 64), (8, 1500, 2048, 64)]
+# the edge clouds' (`chip_smoke.exact_edge_clouds`): 2 rows each
+_EXACT_EDGE_SHAPES = [(2, 1000, 32, 16), (2, 1000, 32, 32),
+                      (2, 2049, 32, 16), (2, 3000, 32, 96),
+                      (2, 2049, 32, 64), (2, 2049, 64, 8), (2, 50, 32, 8),
+                      (2, 1000, 33, 16)]
+
+
+class TestExactQueryPlan:
+    """`ops.ball_query.exact_plan`: the exact query's tile as a plain
+    function of the shape, inside the launcher's limits."""
+
+    @pytest.mark.parametrize("b,n,m,s", _EXACT_PATH_SHAPES
+                             + _EXACT_EDGE_SHAPES)
+    def test_tiles_are_inside_the_launcher_limits(self, b, n, m, s):
+        tiles = tbq.exact_tiles(b, n, m, s, torch.float32)
+        assert tbq.exact_plan(b, n, m, s, torch.float32) in tiles
+        assert tiles[0] == tbq.EXACT_POINTS  # lanes on points, always
+        assert tbq.EXACT_POINTS == (tbq.POINTS_IN_LANES, 8, 8, 1)
+        centres = [t for t in tiles if t.mapping == tbq.CENTRES_IN_LANES]
+        assert centres  # every shape here has a slot table that fits
+        for t in centres:
+            assert t.per_lane in tbq._PER_LANE
+            assert t.centres % (32 * t.per_lane) == 0
+            assert t.centres <= min(tbq._MAX_CENTRES, max(32, 2 * m))
+            groups = t.centres // (32 * t.per_lane)
+            assert 1 <= t.warps <= tbq._MAX_WARPS and t.warps % groups == 0
+            # no chunk group without a chunk of the row
+            assert tbq.exact_span(t) <= max(tbq._ROW_CHUNK, 2 * n)
+            assert tbq.exact_smem_bytes(t, s) <= tbq._MAX_SMEM
+        assert len(set(tiles)) == len(tiles)
+
+    @pytest.mark.parametrize("b,n,m,s", _EXACT_PATH_SHAPES[:1]
+                             + _EXACT_EDGE_SHAPES[3:4])
+    def test_float64_takes_lanes_on_points(self, b, n, m, s):
+        assert tbq.exact_tiles(b, n, m, s, torch.float64) == (
+            tbq.EXACT_POINTS,)
+        assert tbq.exact_plan(b, n, m, s, torch.float64) == tbq.EXACT_POINTS
+
+    def test_a_slot_table_that_does_not_fit_takes_lanes_on_points(self):
+        """nsample has no limit where lanes hold points; lanes on centres
+        stage the slots, and the plan drops their tiles where the table
+        does not fit beside the ring."""
+        narrowest = tbq.ExactTile(tbq.CENTRES_IN_LANES, 32, 8, 1)
+        big = 1024
+        assert tbq.exact_smem_bytes(narrowest, big) > tbq._MAX_SMEM
+        assert tbq.exact_tiles(8, 40000, 2048, big, torch.float32) == (
+            tbq.EXACT_POINTS,)
+        assert tbq.exact_plan(8, 40000, 2048, big,
+                              torch.float32) == tbq.EXACT_POINTS
+        # nsample 1: a centre's first hit ends its scan
+        assert tbq.exact_tiles(8, 40000, 2048, 1, torch.float32) == (
+            tbq.EXACT_POINTS,)
+
+    def test_smem_matches_the_launcher(self):
+        """The launcher's sum: 16 bytes for the copy's barrier, the copied
+        round (chunk groups x 64 points x up to 4 floats), two stages of
+        squared points (16 bytes each), the counts a chunk group, the hits
+        so far and the slot table (stride nsample + 1)."""
+        tile = tbq.ExactTile(tbq.CENTRES_IN_LANES, 128, 8, 2)  # 2 x 4
+        assert tbq.exact_span(tile) == 4 * 64
+        assert tbq.exact_smem_bytes(tile, 64) == (
+            16 + 4 * 256 * 4 + 2 * 256 * 16
+            + 4 * (4 * 128 + 128 + 128 * 65))
+        assert tbq.exact_smem_bytes(tbq.EXACT_POINTS, 10 ** 6) == 0
+
+    @pytest.mark.parametrize("b,n,m,s", [_EXACT_PATH_SHAPES[0],
+                                         _EXACT_PATH_SHAPES[5]])
+    def test_first_layer_gives_every_sm_a_block(self, b, n, m, s):
+        tile = tbq.exact_plan(b, n, m, s, torch.float32)
+        assert tbq.blocks(tile, b, m) >= tbq._SMS
+
+    @pytest.mark.parametrize("b,n,m,s", _EXACT_PATH_SHAPES)
+    def test_path_shapes_take_lanes_on_centres(self, b, n, m, s):
+        """Every exact-path call takes lanes on centres: 64 centres a
+        block, 2 a lane, where that gives every SM a block (the first
+        layers), else 32 centres, 1 a lane."""
+        tile = tbq.exact_plan(b, n, m, s, torch.float32)
+        assert tile.mapping == tbq.CENTRES_IN_LANES and tile.warps == 8
+        wide = b * m >= 64 * tbq._SMS
+        assert wide == (m == 2048)
+        assert (tile.centres, tile.per_lane) == ((64, 2) if wide else (32, 1))
+
+    def test_walk_from_the_output(self):
+        """`exact_walked` on hand-built slots: a block walks whole rounds
+        up to the round of its last nsample-th hit, or its whole row where
+        a centre has fewer hits, times its live centres."""
+        tile = tbq.ExactTile(tbq.CENTRES_IN_LANES, 32, 8, 1)
+        span = tbq.exact_span(tile)
+        assert span == 512
+        n, s = 1000, 4
+        idx = torch.zeros(2, 40, s, dtype=torch.int32)
+        hits = torch.arange(s, dtype=torch.int32)
+        # row 0: every centre has s hits; block 0's last s-th hit is point
+        # 600 (round 1, walked to n), block 1's (8 centres) point 511
+        idx[0] = hits * 10
+        idx[0, 3] = torch.tensor([5, 9, 100, 600])
+        idx[0, 35] = torch.tensor([0, 1, 2, 511])
+        # row 1: block 0 all at point 3; block 1 has a centre with 2 hits
+        # (slot-filled with its first), so its block walks the whole row
+        idx[1, :32] = hits
+        idx[1, 32:] = hits + 20
+        idx[1, 39] = torch.tensor([7, 8, 7, 7])
+        assert tbq.exact_walked(idx, tile, n) == (
+            32 * n + 8 * span + 32 * span + 8 * n)
+        # one block of 64: row 0 walks to n, row 1 as well
+        wide = tbq.ExactTile(tbq.CENTRES_IN_LANES, 64, 8, 2)
+        assert tbq.exact_walked(idx, wide, n) == 40 * n + 40 * n
+        # a centre with no hit at all (every slot 0)
+        idx[1, :32] = 0
+        assert tbq.exact_walked(idx, tile, n) == (
+            32 * n + 8 * span + 32 * n + 8 * n)
+        with pytest.raises(ValueError):
+            tbq.exact_walked(idx, tbq.EXACT_POINTS, n)
+
+
 class TestGroupingInterpolate:
     def test_gather_points(self):
         rng = np.random.default_rng(8)
