@@ -1,0 +1,8 @@
+"""The share of the traced steps with nothing running on the device
+(trace)."""
+
+from portbench import readers
+
+
+def read(out):
+    return readers.idle_pct(out, "train")
