@@ -38,6 +38,7 @@ from backtoreality_tpu_torch.losses.common import (compute_jitter_loss,
                                                    softmax_focal_loss,
                                                    take_rows)
 from backtoreality_tpu_torch.ops import nn_distance, top_k_indices
+from backtoreality_tpu_torch.train.observability import spanned
 
 
 def smoothl1_loss(error, delta: float = 1.0):
@@ -109,6 +110,7 @@ def _kps_loss(logits, objectness_label, topk):
     return torch.sum(loss) / b, stats
 
 
+@spanned("loss.kps")
 def compute_points_obj_cls_loss_hard_topk(end_points, topk):
     """`loss_helper.py:17-78`: for each GT box, its top-k
     size-normalized-closest seeds *within the instance* are positives."""
@@ -132,6 +134,7 @@ def compute_points_obj_cls_loss_hard_topk(end_points, topk):
     return _kps_loss(end_points["seeds_obj_cls_logits"], label, topk)
 
 
+@spanned("loss.kps")
 def compute_points_obj_cls_loss_hard_topk_weak(end_points, topk):
     """`loss_helper.py:322-385`: weak variant — top-k on the raw distance
     to the weak centres, no instance masking."""
@@ -171,6 +174,7 @@ def _query_labels_weak(end_points):
     return (euclid < 0.3).to(torch.int32), ind1.to(torch.int32)
 
 
+@spanned("loss.objectness")
 def compute_objectness_loss_query_points(end_points, num_decoder_layers,
                                          weak=False):
     """Per-prefix sigmoid-focal objectness. Returns
@@ -213,6 +217,7 @@ def _label_sum_mean(loss, objectness_label):
             / (torch.sum(objectness_label) + 1e-6))
 
 
+@spanned("loss.box_sem")
 def compute_box_and_sem_cls_loss(end_points, config, num_decoder_layers,
                                  labels, center_loss_type="smoothl1",
                                  center_delta=1.0,
@@ -293,6 +298,7 @@ def compute_box_and_sem_cls_loss(end_points, config, num_decoder_layers,
     return box_loss_sum, sem_cls_loss_sum, aux
 
 
+@spanned("loss.box_sem")
 def compute_center_and_sem_cls_loss(end_points, config, num_decoder_layers,
                                     labels, center_loss_type="smoothl1",
                                     center_delta=1.0):
@@ -353,6 +359,7 @@ def _compose(aux, kps_loss, obj_loss_sum, box_loss_sum, sem_cls_loss_sum,
     return loss
 
 
+@spanned("loss")
 def get_loss(end_points, config, num_decoder_layers,
              query_points_generator_loss_coef, obj_loss_coef,
              box_loss_coef, sem_cls_loss_coef, query_points_obj_topk=5,
@@ -378,6 +385,7 @@ def get_loss(end_points, config, num_decoder_layers,
     return loss, aux
 
 
+@spanned("loss")
 def get_loss_weak(end_points, config, num_decoder_layers,
                   query_points_generator_loss_coef, obj_loss_coef,
                   box_loss_coef, sem_cls_loss_coef,
@@ -458,6 +466,7 @@ def _da_losses(end_points_S, end_points_T, config, num_decoder_layers,
     return 0.5 * loss_S + loss_T, da_loss, aux
 
 
+@spanned("loss")
 def get_loss_DA(end_points_S, end_points_T, config, num_decoder_layers,
                 query_points_generator_loss_coef, obj_loss_coef,
                 box_loss_coef, sem_cls_loss_coef, query_points_obj_topk=5,
@@ -472,6 +481,7 @@ def get_loss_DA(end_points_S, end_points_T, config, num_decoder_layers,
     return loss, {"loss": loss, "da_loss": da_loss, **aux}
 
 
+@spanned("loss")
 def get_loss_DA_jitter(end_points_S, end_points_T, epoch, config,
                        num_decoder_layers, query_points_generator_loss_coef,
                        obj_loss_coef, box_loss_coef, sem_cls_loss_coef,
@@ -644,6 +654,7 @@ PSEUDO_LABEL_KEYS = ("box_label_mask", "center_label", "sem_cls_label",
                      "size_class_label", "size_residual_label")
 
 
+@spanned("loss")
 def get_loss_pseudo(end_points, end_points_teacher, config, config_dict,
                     num_decoder_layers, box_loss_coef, sem_cls_loss_coef,
                     teacher_prefix="4head_", **reg_kwargs):

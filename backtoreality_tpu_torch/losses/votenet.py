@@ -34,6 +34,7 @@ from backtoreality_tpu_torch.losses.common import (compute_jitter_loss,
                                                    softmax_focal_loss)
 from backtoreality_tpu_torch.losses.common import take_rows as _take
 from backtoreality_tpu_torch.ops import huber_loss, nn_distance
+from backtoreality_tpu_torch.train.observability import spanned
 
 FAR_THRESHOLD = 0.6
 NEAR_THRESHOLD = 0.3
@@ -41,6 +42,7 @@ GT_VOTE_FACTOR = 3
 OBJECTNESS_CLS_WEIGHTS = (0.2, 0.8)
 
 
+@spanned("loss.vote")
 def compute_vote_loss(end_points):
     """`loss_helper.py:24-69`: per-seed min-over-votes min-over-GT-votes
     L1 regression, masked to seeds inside objects."""
@@ -60,6 +62,7 @@ def compute_vote_loss(end_points):
     return masked_mean(votes_dist, seed_gt_votes_mask)
 
 
+@spanned("loss.vote")
 def compute_weak_vote_loss(end_points):
     """`loss_helper.py:71-109`: bidirectional chamfer between votes and
     (weak) GT centres — mean vote->centre plus masked centre->vote."""
@@ -72,6 +75,7 @@ def compute_weak_vote_loss(end_points):
             + masked_mean(dist2, end_points["box_label_mask"]))
 
 
+@spanned("loss.objectness")
 def compute_objectness_loss(end_points):
     """`loss_helper.py:111-152`. Returns (loss, label, mask, assignment)."""
     gt_center = end_points["center_label"][:, :, 0:3]
@@ -89,6 +93,7 @@ def compute_objectness_loss(end_points):
     return loss, objectness_label, objectness_mask, ind1
 
 
+@spanned("loss.box_sem")
 def compute_box_and_sem_cls_loss(end_points, config):
     """`loss_helper.py:154-228`: centre chamfer both ways + heading
     cls/reg + size cls/reg + sem cls, objectness-masked."""
@@ -154,6 +159,7 @@ def compute_box_and_sem_cls_loss(end_points, config):
             size_residual_normalized_loss, sem_cls_loss)
 
 
+@spanned("loss.box_sem")
 def compute_center_and_sem_cls_loss(end_points, config):
     """`loss_helper.py:242-304` — the weak-label variant: centre chamfer
     + size cls + sem cls only (weak labels carry centres + classes)."""
@@ -188,6 +194,7 @@ def _objectness_stats(end_points, objectness_label, objectness_mask):
     return pos_ratio, neg_ratio, obj_acc
 
 
+@spanned("loss")
 def get_loss(end_points, config):
     """FSB criterion (`loss_helper.py:336-400`). Returns (loss, aux)."""
     aux = {}
@@ -223,6 +230,7 @@ def get_loss(end_points, config):
     return loss, aux
 
 
+@spanned("loss")
 def get_loss_weak(end_points, config):
     """WSB criterion (`loss_helper.py:403-464`). Returns (loss, aux)."""
     aux = {}
@@ -254,6 +262,7 @@ def get_loss_weak(end_points, config):
     return loss, aux
 
 
+@spanned("loss.box_sem")
 def compute_sem_cls_loss(end_points, config):
     """Scene-level multi-label semantic loss (`loss_helper.py:306-333`):
     BCE between the mean-pooled per-proposal class logits and the scene
@@ -264,6 +273,7 @@ def compute_sem_cls_loss(end_points, config):
     return torch.mean(sigmoid_bce_with_logits(cloud_pred, cloud_label))
 
 
+@spanned("loss.objectness")
 def compute_objectness_loss_boxnet(end_points):
     """BoxNet objectness (`loss_helper_boxnet.py:20-61`): the label is
     the seed's GT vote mask gathered through the aggregation indices, no
@@ -284,6 +294,7 @@ def compute_objectness_loss_boxnet(end_points):
     return loss, objectness_label, objectness_mask, ind1
 
 
+@spanned("loss")
 def get_loss_boxnet(end_points, config):
     """BoxNet criterion (`loss_helper_boxnet.py:64-122`): no vote loss,
     (0.5 obj + box + 0.1 sem) * 10. Returns (loss, aux)."""
@@ -386,6 +397,7 @@ def _da_supervised_parts(end_points_S, end_points_T, config, aux):
             objectness_label_S, objectness_label_T)
 
 
+@spanned("loss")
 def get_loss_DA(end_points_S, end_points_T, config):
     """BR criterion (`loss_helper.py:548-664`): 0.1 x full-supervised
     source + weak target + domain alignment. Returns (loss, aux)."""
@@ -402,6 +414,7 @@ def get_loss_DA(end_points_S, end_points_T, config):
     return loss, aux
 
 
+@spanned("loss")
 def get_loss_DA_jitter(end_points_S, end_points_T, epoch, config):
     """BR+CenterRefine criterion (`loss_helper.py:675-803`); `epoch` is a
     host number. Returns (loss, aux)."""
@@ -430,6 +443,7 @@ def _positive_weight(end_points):
     return torch.softmax(end_points["objectness_scores"], -1)[..., 1:]
 
 
+@spanned("loss")
 def get_loss_DA_separate(end_points_S, end_points_T, config):
     """Experimental DA variant (`loss_helper.py:806-907`; on no recipe's
     path). Against `get_loss_DA`: both domains weigh equally (no 0.1
@@ -483,6 +497,7 @@ def get_loss_DA_separate(end_points_S, end_points_T, config):
     return loss, aux
 
 
+@spanned("loss")
 def get_loss_cam(end_points, config):
     """Class-activation-map pretext loss (`loss_helper.py:910-943`; the
     model that produced ``cam`` was removed from the reference): BCE
@@ -512,6 +527,7 @@ def _cam_domain_loss(end_points, domain_value, flip_local):
                                        domain, gamma=3))
 
 
+@spanned("loss")
 def get_loss_DA_cam(end_points_S, end_points_T, config):
     """CAM-augmented DA variant (`loss_helper.py:946-1039`): full
     supervision on the source (the full seed-vote loss included), the

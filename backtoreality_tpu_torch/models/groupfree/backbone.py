@@ -5,7 +5,8 @@ Counterpart of ``backtoreality_tpu/models/groupfree/backbone.py``: the
 4 x SA + 2 x FP topology of VoteNet's backbone with a width multiplier,
 fp2 emitting 288 channels (the transformer's width). The stages compute
 in `dtype` but for the last `f32_tail`, in float32, as VoteNet's
-(`models.votenet.backbone.stage_dtype`).
+(`models.votenet.backbone.stage_dtype`). The spans are VoteNet's
+(``model.backbone``, ``model.backbone.sa1`` ... ``.fp2``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from torch import nn
 
 from backtoreality_tpu_torch.models.votenet.backbone import stage_dtype
 from backtoreality_tpu_torch.nn import FPModule, SAModuleVotes
+from backtoreality_tpu_torch.train.observability import span
 
 
 class GFBackbone(nn.Module):
@@ -54,30 +56,37 @@ class GFBackbone(nn.Module):
         xyz = pointcloud[..., 0:3]
         features = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
 
-        xyz, features, inds = self.sa1(xyz, features)
-        end_points["sa1_inds"] = inds
-        end_points["sa1_xyz"] = xyz
-        end_points["sa1_features"] = features
+        with span("model.backbone"):
+            with span("model.backbone.sa1"):
+                xyz, features, inds = self.sa1(xyz, features)
+            end_points["sa1_inds"] = inds
+            end_points["sa1_xyz"] = xyz
+            end_points["sa1_features"] = features
 
-        xyz, features, inds = self.sa2(xyz, features)
-        end_points["sa2_inds"] = inds
-        end_points["sa2_xyz"] = xyz
-        end_points["sa2_features"] = features
+            with span("model.backbone.sa2"):
+                xyz, features, inds = self.sa2(xyz, features)
+            end_points["sa2_inds"] = inds
+            end_points["sa2_xyz"] = xyz
+            end_points["sa2_features"] = features
 
-        xyz, features, _ = self.sa3(xyz, features)
-        end_points["sa3_xyz"] = xyz
-        end_points["sa3_features"] = features
+            with span("model.backbone.sa3"):
+                xyz, features, _ = self.sa3(xyz, features)
+            end_points["sa3_xyz"] = xyz
+            end_points["sa3_features"] = features
 
-        xyz, features, _ = self.sa4(xyz, features)
-        end_points["sa4_xyz"] = xyz
-        end_points["sa4_features"] = features
+            with span("model.backbone.sa4"):
+                xyz, features, _ = self.sa4(xyz, features)
+            end_points["sa4_xyz"] = xyz
+            end_points["sa4_features"] = features
 
-        features = self.fp1(
-            end_points["sa3_xyz"], end_points["sa4_xyz"],
-            end_points["sa3_features"], end_points["sa4_features"])
-        features = self.fp2(
-            end_points["sa2_xyz"], end_points["sa3_xyz"],
-            end_points["sa2_features"], features)
+            with span("model.backbone.fp1"):
+                features = self.fp1(
+                    end_points["sa3_xyz"], end_points["sa4_xyz"],
+                    end_points["sa3_features"], end_points["sa4_features"])
+            with span("model.backbone.fp2"):
+                features = self.fp2(
+                    end_points["sa2_xyz"], end_points["sa3_xyz"],
+                    end_points["sa2_features"], features)
         end_points["fp2_features"] = features
         end_points["fp2_xyz"] = end_points["sa2_xyz"]
         num_seed = end_points["fp2_xyz"].shape[1]

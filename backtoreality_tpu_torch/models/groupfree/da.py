@@ -13,7 +13,7 @@ centre's jitter with 128+C->64->3.
 The heads sit under the JAX package's names (``da_heads``, ``ctjt_head``,
 ``jitter_net``), so `bridge.state_dict_from_jax` maps every leaf and
 `train.common.make_gf_optimizer` keeps them out of the decoder's group.
-The decoder loop is `GroupFreeDetector.forward`'s; the heads come in
+The decoder loop is `GroupFreeDetector.detect`'s; the heads come in
 through its hooks. The heads compute in the model's `dtype`, as in the
 JAX package (the jitter net too, unlike VoteNet's).
 """
@@ -83,8 +83,8 @@ class GroupFreeDetectorDA(GroupFreeDetector):
     def _last_query(self, end_points, query):
         end_points["last_local_d_pred"] = self.da_heads.local_pred(query)
 
-    def forward(self, point_clouds, *labels):
-        end_points = super().forward(point_clouds, *labels)
+    def detect(self, point_clouds, *labels):
+        end_points = super().detect(point_clouds, *labels)
         end_points["global_d_pred"] = self.da_heads.global_pred(
             end_points["seed_features"])
         return end_points

@@ -17,6 +17,11 @@ of `forward`: `_before_queries` (the jitter head, on the backbone's
 outputs and the labels passed after the point clouds) and `_last_query`
 (the local discriminator, on the last decoder layer's query before its
 prediction head).
+
+Spans (`observability.span`): the forward in ``model``, the query
+selection in ``model.kps`` (KPS or FPS), the proposal head in
+``model.proposal``, the decoder in ``model.decoder`` and each of its
+layers, with that layer's prediction head, in ``model.decoder.layer<i>``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from backtoreality_tpu_torch.models.groupfree.transformer import \
     TransformerDecoderLayer
 from backtoreality_tpu_torch.nn import Dense
 from backtoreality_tpu_torch.ops import top_k_indices
+from backtoreality_tpu_torch.train.observability import span
 
 POSITION_EMBEDDINGS = {"none": 0, "xyz_learned": 3, "loc_learned": 6}
 
@@ -76,6 +82,7 @@ class GroupFreeDetector(nn.Module):
         self.decoder_key_proj = Dense(288, 288, dtype=dtype)
         self.decoder_query_proj = Dense(288, 288, dtype=dtype)
         layers = range(num_decoder_layers)
+        self._layer_spans = tuple(f"model.decoder.layer{i}" for i in layers)
         if self_position_embedding != "none":
             self.decoder_self_posembeds = nn.ModuleList(
                 PositionEmbeddingLearned(
@@ -123,40 +130,56 @@ class GroupFreeDetector(nn.Module):
         (none for this model). Returns the end_points dict, with the
         per-head keys under the prefixes ``proposal_``, ``0head_`` ...
         and ``last_``."""
+        with span("model"):
+            return self.detect(point_clouds, *labels)
+
+    def detect(self, point_clouds, *labels):
+        """`forward` outside its span."""
         end_points = self.backbone_net(point_clouds)
         end_points["seed_inds"] = end_points["fp2_inds"]
         end_points["seed_xyz"] = end_points["fp2_xyz"]
         end_points["seed_features"] = end_points["fp2_features"]
         self._before_queries(end_points, *labels)
 
-        cluster_xyz, cluster_feature = self._select_queries(end_points)
-        base_xyz, base_size = self.proposal_head(
-            cluster_feature, cluster_xyz, end_points, "proposal_")
+        with span("model.kps"):
+            cluster_xyz, cluster_feature = self._select_queries(end_points)
+        with span("model.proposal"):
+            base_xyz, base_size = self.proposal_head(
+                cluster_feature, cluster_xyz, end_points, "proposal_")
         base_xyz, base_size = base_xyz.detach(), base_size.detach()
         if self.num_decoder_layers <= 0:
             return end_points
 
-        query = self.decoder_query_proj(cluster_feature)
-        key = self.decoder_key_proj(end_points["fp2_features"])
-        key_pos = end_points["fp2_xyz"]
-        for i in range(self.num_decoder_layers):
-            prefix = ("last_" if i == self.num_decoder_layers - 1
-                      else f"{i}head_")
-            if self.self_position_embedding == "none":
-                query_pos_embed = None
-            elif self.self_position_embedding == "xyz_learned":
-                query_pos_embed = self.decoder_self_posembeds[i](base_xyz)
-            else:  # loc_learned
-                query_pos_embed = self.decoder_self_posembeds[i](
-                    torch.cat([base_xyz, base_size], -1))
-            key_pos_embed = (
-                None if self.cross_position_embedding == "none"
-                else self.decoder_cross_posembeds[i](key_pos))
-            query = self.decoder[i](query, key, query_pos_embed,
-                                    key_pos_embed)
-            if prefix == "last_":
-                self._last_query(end_points, query)
-            base_xyz, base_size = self.prediction_heads[i](
-                query, cluster_xyz, end_points, prefix)
-            base_xyz, base_size = base_xyz.detach(), base_size.detach()
+        with span("model.decoder"):
+            query = self.decoder_query_proj(cluster_feature)
+            key = self.decoder_key_proj(end_points["fp2_features"])
+            key_pos = end_points["fp2_xyz"]
+            for i in range(self.num_decoder_layers):
+                with span(self._layer_spans[i]):
+                    query, base_xyz, base_size = self._decoder_layer(
+                        i, query, key, key_pos, base_xyz, base_size,
+                        cluster_xyz, end_points)
         return end_points
+
+    def _decoder_layer(self, i, query, key, key_pos, base_xyz, base_size,
+                       cluster_xyz, end_points):
+        """Decoder layer `i` and its prediction head; returns the query
+        and the detached base positions and sizes the next layer takes."""
+        prefix = ("last_" if i == self.num_decoder_layers - 1
+                  else f"{i}head_")
+        if self.self_position_embedding == "none":
+            query_pos_embed = None
+        elif self.self_position_embedding == "xyz_learned":
+            query_pos_embed = self.decoder_self_posembeds[i](base_xyz)
+        else:  # loc_learned
+            query_pos_embed = self.decoder_self_posembeds[i](
+                torch.cat([base_xyz, base_size], -1))
+        key_pos_embed = (
+            None if self.cross_position_embedding == "none"
+            else self.decoder_cross_posembeds[i](key_pos))
+        query = self.decoder[i](query, key, query_pos_embed, key_pos_embed)
+        if prefix == "last_":
+            self._last_query(end_points, query)
+        base_xyz, base_size = self.prediction_heads[i](
+            query, cluster_xyz, end_points, prefix)
+        return query, base_xyz.detach(), base_size.detach()

@@ -9,7 +9,8 @@ centre-grouping head of the CenterRefine model (`backbone_module.py:
 136-262`); ``Pointnet2BackboneCam`` is the SA layers alone
 (`backbone_module.py:265-367`). The stages compute in `dtype` (None: the
 parameters', float32), but for the last `f32_tail` of them, which compute
-in float32 (:func:`stage_dtype`).
+in float32 (:func:`stage_dtype`). Each backbone's forward runs in the span
+``model.backbone``, each layer in ``model.backbone.sa1`` ... ``.fp2``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from torch import nn
 
 from backtoreality_tpu_torch.nn import (FPModule, SAModuleCenters,
                                         SAModuleVotes)
+from backtoreality_tpu_torch.train.observability import span
 
 
 def stage_dtype(dtype: torch.dtype | None, f32_tail: int, idx: int):
@@ -27,6 +29,9 @@ def stage_dtype(dtype: torch.dtype | None, f32_tail: int, idx: int):
     whatever `dtype` (``Pointnet2Backbone._stage_dtype`` of the JAX
     package); None is the parameters' dtype, float32."""
     return None if 6 - idx <= f32_tail else dtype
+
+
+_SA_SPANS = tuple(f"model.backbone.sa{i}" for i in range(1, 5))
 
 
 def _sa_layers(input_feature_dim, query_mode, fps_candidates, dtypes):
@@ -72,30 +77,37 @@ class Pointnet2Backbone(nn.Module):
         xyz = pointcloud[..., 0:3]
         features = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
 
-        xyz, features, inds = self.sa1(xyz, features)
-        end_points["sa1_inds"] = inds
-        end_points["sa1_xyz"] = xyz
-        end_points["sa1_features"] = features
+        with span("model.backbone"):
+            with span("model.backbone.sa1"):
+                xyz, features, inds = self.sa1(xyz, features)
+            end_points["sa1_inds"] = inds
+            end_points["sa1_xyz"] = xyz
+            end_points["sa1_features"] = features
 
-        xyz, features, inds = self.sa2(xyz, features)
-        end_points["sa2_inds"] = inds
-        end_points["sa2_xyz"] = xyz
-        end_points["sa2_features"] = features
+            with span("model.backbone.sa2"):
+                xyz, features, inds = self.sa2(xyz, features)
+            end_points["sa2_inds"] = inds
+            end_points["sa2_xyz"] = xyz
+            end_points["sa2_features"] = features
 
-        xyz, features, inds = self.sa3(xyz, features)
-        end_points["sa3_xyz"] = xyz
-        end_points["sa3_features"] = features
+            with span("model.backbone.sa3"):
+                xyz, features, inds = self.sa3(xyz, features)
+            end_points["sa3_xyz"] = xyz
+            end_points["sa3_features"] = features
 
-        xyz, features, inds = self.sa4(xyz, features)
-        end_points["sa4_xyz"] = xyz
-        end_points["sa4_features"] = features
+            with span("model.backbone.sa4"):
+                xyz, features, inds = self.sa4(xyz, features)
+            end_points["sa4_xyz"] = xyz
+            end_points["sa4_features"] = features
 
-        features = self.fp1(
-            end_points["sa3_xyz"], end_points["sa4_xyz"],
-            end_points["sa3_features"], end_points["sa4_features"])
-        features = self.fp2(
-            end_points["sa2_xyz"], end_points["sa3_xyz"],
-            end_points["sa2_features"], features)
+            with span("model.backbone.fp1"):
+                features = self.fp1(
+                    end_points["sa3_xyz"], end_points["sa4_xyz"],
+                    end_points["sa3_features"], end_points["sa4_features"])
+            with span("model.backbone.fp2"):
+                features = self.fp2(
+                    end_points["sa2_xyz"], end_points["sa3_xyz"],
+                    end_points["sa2_features"], features)
         end_points["fp2_features"] = features
         end_points["fp2_xyz"] = end_points["sa2_xyz"]
         num_seed = end_points["fp2_xyz"].shape[1]
@@ -125,13 +137,15 @@ class Pointnet2BackboneCam(nn.Module):
             end_points = {}
         xyz = pointcloud[..., 0:3]
         features = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
-        for i, sa in enumerate((self.sa1, self.sa2, self.sa3, self.sa4),
-                               start=1):
-            xyz, features, inds = sa(xyz, features)
-            if i <= 2:
-                end_points[f"sa{i}_inds"] = inds
-            end_points[f"sa{i}_xyz"] = xyz
-            end_points[f"sa{i}_features"] = features
+        with span("model.backbone"):
+            for i, sa in enumerate((self.sa1, self.sa2, self.sa3, self.sa4),
+                                   start=1):
+                with span(_SA_SPANS[i - 1]):
+                    xyz, features, inds = sa(xyz, features)
+                if i <= 2:
+                    end_points[f"sa{i}_inds"] = inds
+                end_points[f"sa{i}_xyz"] = xyz
+                end_points[f"sa{i}_features"] = features
         return end_points
 
 
@@ -164,8 +178,9 @@ class Pointnet2BackboneJitter(nn.Module):
         Adds `center_features` (B, K, 128 + num_class) to end_points
         (`backbone_module.py:257-260`)."""
         end_points = self.backbone(pointcloud, end_points)
-        feats = self.ctjt(end_points["sa2_xyz"], end_points["fp2_features"],
-                          center_label)
+        with span("model.backbone"):
+            feats = self.ctjt(end_points["sa2_xyz"],
+                              end_points["fp2_features"], center_label)
         onehot = torch.eye(self.num_class, dtype=feats.dtype,
                            device=feats.device)[sem_cls_label.long()]
         end_points["center_features"] = torch.cat([feats, onehot], dim=-1)

@@ -16,6 +16,7 @@ from torch import nn
 from backtoreality_tpu_torch.models.votenet.backbone import \
     Pointnet2Backbone
 from backtoreality_tpu_torch.models.votenet.proposal import ProposalModule
+from backtoreality_tpu_torch.train.observability import span
 
 
 class BoxNet(nn.Module):
@@ -39,11 +40,13 @@ class BoxNet(nn.Module):
         """point_clouds (B, N, 3+C). Returns the end_points dict (no
         ``vote_*`` entries). `generator`: the draws of
         ``sampling="random"``."""
-        end_points = self.backbone_net(point_clouds)
-        xyz = end_points["fp2_xyz"]
-        features = end_points["fp2_features"]
-        end_points["seed_inds"] = end_points["fp2_inds"]
-        end_points["seed_xyz"] = xyz
-        end_points["seed_features"] = features
-        # the proposals straight from the seeds
-        return self.pnet(xyz, features, end_points, generator)
+        with span("model"):
+            end_points = self.backbone_net(point_clouds)
+            xyz = end_points["fp2_xyz"]
+            features = end_points["fp2_features"]
+            end_points["seed_inds"] = end_points["fp2_inds"]
+            end_points["seed_xyz"] = xyz
+            end_points["seed_features"] = features
+            # the proposals straight from the seeds
+            with span("model.proposal"):
+                return self.pnet(xyz, features, end_points, generator)

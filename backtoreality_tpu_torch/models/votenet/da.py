@@ -31,6 +31,7 @@ from backtoreality_tpu_torch.models.votenet.backbone import \
 from backtoreality_tpu_torch.models.votenet.votenet import VoteNet
 from backtoreality_tpu_torch.nn import Dense, SAModuleCenters
 from backtoreality_tpu_torch.nn.norm import BatchNorm
+from backtoreality_tpu_torch.train.observability import span
 
 
 class _GradReverse(torch.autograd.Function):
@@ -101,7 +102,13 @@ class VoteNetDA(VoteNet):
         self.da_heads = _DAHeads(dtype)
 
     def forward(self, point_clouds, generator=None):
-        return self.da_heads(super().forward(point_clouds, generator))
+        with span("model"):
+            return self.detect(point_clouds, generator)
+
+    def detect(self, point_clouds, generator=None):
+        """The backbone, voting, proposals and the domain heads."""
+        return self.da_heads(self.heads(self.backbone_net(point_clouds),
+                                        generator))
 
 
 class VoteNetDAJitter(VoteNetDA):
@@ -133,14 +140,16 @@ class VoteNetDAJitter(VoteNetDA):
                 generator=None):
         """center_label (B, K, 3) and sem_cls_label (B, K): the (weak)
         GT centres and classes the jitter head groups at."""
-        end_points = self.backbone_net(point_clouds, center_label,
-                                       sem_cls_label)
-        end_points["jitter_pred"] = self.jitter_net(
-            end_points["center_features"])  # (B, K, 3)
-        end_points = self.da_heads(self.heads(end_points, generator))
-        jd = self.jitter_netD(grad_reverse(end_points["center_features"]))
-        end_points["jitter_d_pred"] = torch.sigmoid(jd)
-        return end_points
+        with span("model"):
+            end_points = self.backbone_net(point_clouds, center_label,
+                                           sem_cls_label)
+            end_points["jitter_pred"] = self.jitter_net(
+                end_points["center_features"])  # (B, K, 3)
+            end_points = self.da_heads(self.heads(end_points, generator))
+            jd = self.jitter_netD(
+                grad_reverse(end_points["center_features"]))
+            end_points["jitter_d_pred"] = torch.sigmoid(jd)
+            return end_points
 
 
 class VoteNetDAJitter2(VoteNetDA):
@@ -171,13 +180,15 @@ class VoteNetDAJitter2(VoteNetDA):
                 generator=None):
         """center_label (B, K, 3) and sem_cls_label (B, K): the (weak)
         GT centres and classes the jitter head groups at."""
-        end_points = super().forward(point_clouds, generator)
-        cf = self.ctjt_head(end_points["aggregated_vote_xyz"],
-                            end_points["aggregated_vote_features"].detach(),
-                            center_label)
-        onehot = torch.eye(self.num_class, dtype=cf.dtype,
-                           device=cf.device)[sem_cls_label.long()]
-        end_points["center_features"] = torch.cat([cf, onehot], dim=-1)
-        end_points["jitter_pred"] = self.jitter_net(
-            end_points["center_features"])  # (B, K, 3)
-        return end_points
+        with span("model"):
+            end_points = self.detect(point_clouds, generator)
+            cf = self.ctjt_head(
+                end_points["aggregated_vote_xyz"],
+                end_points["aggregated_vote_features"].detach(),
+                center_label)
+            onehot = torch.eye(self.num_class, dtype=cf.dtype,
+                               device=cf.device)[sem_cls_label.long()]
+            end_points["center_features"] = torch.cat([cf, onehot], dim=-1)
+            end_points["jitter_pred"] = self.jitter_net(
+                end_points["center_features"])  # (B, K, 3)
+            return end_points

@@ -6,6 +6,8 @@ backbone -> hough voting (+ L2-normalized vote features,
 (its last `f32_tail` stages in float32), the voting and proposal heads in
 `head_dtype`; None is the parameters' dtype, float32. The JAX package's
 `build_model` never sets `head_dtype`: its heads stay float32 under bf16.
+Every detector's forward runs in the span ``model``; the voting module in
+``model.voting``, the proposal module in ``model.proposal``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from backtoreality_tpu_torch.models.votenet.backbone import \
     Pointnet2Backbone
 from backtoreality_tpu_torch.models.votenet.proposal import ProposalModule
 from backtoreality_tpu_torch.models.votenet.voting import VotingModule
+from backtoreality_tpu_torch.train.observability import span
 
 
 class VoteNet(nn.Module):
@@ -48,7 +51,8 @@ class VoteNet(nn.Module):
     def forward(self, point_clouds, generator=None):
         """point_clouds (B, N, 3+C). Returns the end_points dict.
         `generator`: the draws of ``sampling="random"``."""
-        return self.heads(self.backbone_net(point_clouds), generator)
+        with span("model"):
+            return self.heads(self.backbone_net(point_clouds), generator)
 
     def heads(self, end_points, generator=None):
         """Voting and proposals on the backbone's end_points."""
@@ -58,10 +62,12 @@ class VoteNet(nn.Module):
         end_points["seed_xyz"] = xyz
         end_points["seed_features"] = features
 
-        xyz, features = self.vgen(xyz, features)
-        norm = torch.linalg.vector_norm(features, dim=-1, keepdim=True)
-        features = features / torch.clamp(norm, min=1e-12)
+        with span("model.voting"):
+            xyz, features = self.vgen(xyz, features)
+            norm = torch.linalg.vector_norm(features, dim=-1, keepdim=True)
+            features = features / torch.clamp(norm, min=1e-12)
         end_points["vote_xyz"] = xyz
         end_points["vote_features"] = features
 
-        return self.pnet(xyz, features, end_points, generator)
+        with span("model.proposal"):
+            return self.pnet(xyz, features, end_points, generator)

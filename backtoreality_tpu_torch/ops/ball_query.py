@@ -57,6 +57,7 @@ from typing import NamedTuple
 import torch
 
 from backtoreality_tpu_torch.ops import _build
+from backtoreality_tpu_torch.train.observability import spanned
 
 KERNEL = _build.Kernel(
     "ball_query", "ball_query.cu",
@@ -404,6 +405,7 @@ def _check_clouds(xyz, new_xyz):
         raise ValueError("xyz and new_xyz must share device and batch")
 
 
+@spanned("kernel.ball_query")
 def _ball_query_stratified_cuda(xyz, new_xyz, radius, nsample,
                                 tile: Plan | None = None, counter=None):
     """The kernel on CUDA tensors; `tile` overrides :func:`plan` (for
@@ -481,6 +483,7 @@ def _ball_query_exact_torch(xyz, new_xyz, radius, nsample,
     return torch.cat(outs, dim=1)[:, :m]
 
 
+@spanned("kernel.ball_query")
 def _ball_query_exact_cuda(xyz, new_xyz, radius, nsample,
                            tile: ExactTile | None = None, counter=None):
     """The kernel on CUDA tensors, in float64 for float64 `xyz`, else in

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from backtoreality_tpu_torch.ops import _build
+from backtoreality_tpu_torch.train.observability import spanned
 
 _PAD_NORM2 = 1e-3  # squared-norm threshold below which a point is padding
 _BIG = 1e10
@@ -151,6 +152,7 @@ def _fps_torch(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return idxs
 
 
+@spanned("kernel.fps")
 def _fps_cuda(xyz: torch.Tensor, npoint: int,
               layout: Plan | None = None) -> torch.Tensor:
     """The kernel on a CUDA tensor; `layout` overrides :func:`plan` (for

@@ -37,6 +37,7 @@ import torch
 
 from backtoreality_tpu_torch.ops import _build
 from backtoreality_tpu_torch.ops.ball_query import _bucket_size
+from backtoreality_tpu_torch.train.observability import spanned
 
 KERNEL = _build.Kernel(
     "group_stratified", "group_stratified.cu",
@@ -179,6 +180,7 @@ class _GroupStratifiedCuda(torch.autograd.Function):
     passes, a fixed-order sum per point (bitwise repeatable)."""
 
     @staticmethod
+    @spanned("kernel.group")
     def forward(ctx, points, idx, hit):
         _check_cuda_args(points, idx, hit)
         points = points.contiguous()
@@ -204,6 +206,7 @@ class _GroupStratifiedCuda(torch.autograd.Function):
         return grad, None, None
 
 
+@spanned("kernel.group.backward")
 def _backward_passes(gout, idx, hit, n, radius=None, want_xyz=False,
                      want_centres=False):
     """The three passes over gout (b, m, s, c): grad (b, n, c), and None.
@@ -257,6 +260,7 @@ class _GroupLocalizeCuda(torch.autograd.Function):
     is needed; bitwise repeatable."""
 
     @staticmethod
+    @spanned("kernel.group")
     def forward(ctx, xyz, features, new_xyz, idx, hit, radius):
         points = xyz if features is None else features
         _check_cuda_args(points, idx, hit)

@@ -46,6 +46,7 @@ import torch
 from backtoreality_tpu_torch import bridge, parallel
 from backtoreality_tpu_torch.nn.norm import (bn_momentum_schedule,
                                              set_bn_momentum)
+from backtoreality_tpu_torch.train.observability import span
 
 
 def resolve_device(name: str | None) -> torch.device:
@@ -703,15 +704,20 @@ def update(model, optimizer, bn_momentum, forward_loss) -> dict:
     mode (dropout on, BN running statistics moving with `bn_momentum`),
     then one backward, the gradients summed over the ranks (each holds
     the part that flows through its rows of the global loss) and one
-    optimizer step. Returns the aux scalars (on the device)."""
-    model.train()
-    set_bn_momentum(model, bn_momentum)
-    loss, aux = forward_loss()
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    parallel.all_reduce_grads(model.parameters())
-    optimizer.step()
-    return scalars(aux)
+    optimizer step. Returns the aux scalars (on the device). Spans
+    (`observability.span`): ``step`` around it all, ``step.backward``,
+    ``step.optimizer``."""
+    with span("step"):
+        model.train()
+        set_bn_momentum(model, bn_momentum)
+        loss, aux = forward_loss()
+        with span("step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            parallel.all_reduce_grads(model.parameters())
+        with span("step.optimizer"):
+            optimizer.step()
+        return scalars(aux)
 
 
 def make_recal_step(model, *, jitter=False, before=None):

@@ -8,12 +8,19 @@ Counterpart of ``backtoreality_tpu/train/observability.py``:
 * :func:`profile` — a ``torch.profiler`` trace of CPU and CUDA activity
   (``--profile_dir``), exported as a Chrome trace, the counterpart of the
   JAX package's ``jax.profiler`` context; :class:`TraceWindow` traces
-  host steps 10-15 of a run, as the JAX trainers do.
+  host steps 10-15 of a run, as the JAX trainers do;
+* :func:`span` / :func:`spanned` — a named range at a layer boundary of
+  the port (the train step, the models and their layers, the criteria,
+  the hand kernels' launches), recorded only while a profiler records:
+  in ``--profile_dir``'s trace, and in any ``torch.profiler`` session, on
+  the clock of its CUDA kernel records. The names are those of PERF.md
+  §3.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import pathlib
 import time
@@ -21,6 +28,52 @@ import time
 import torch
 
 from backtoreality_tpu_torch import parallel
+
+
+_recording = torch._C._autograd._profiler_enabled
+# torch.profiler.record_function's range (RecordScope.USER_SCOPE, a
+# ``user_annotation`` event) without its trip through the dispatcher: 4.4
+# against 12.0 us a range while a profiler records (an H100 machine's host)
+_range_enter = torch._C._autograd._record_function_with_args_enter
+_range_exit = torch._C._autograd._record_function_with_args_exit
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Range:
+    __slots__ = ("name", "handle")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.handle = _range_enter(self.name)
+
+    def __exit__(self, *exc):
+        _range_exit(self.handle)
+
+
+def span(name: str):
+    """A context that records the range `name` while a profiler records
+    (on this thread: autograd's device threads inherit the session), and
+    otherwise the one shared no-op context, which allocates nothing.
+    `name` should be a constant, never built on the hot path."""
+    if _recording():
+        return _Range(name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """Decorator: the function runs inside ``span(name)``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
 
 
 class ScalarHistory:
