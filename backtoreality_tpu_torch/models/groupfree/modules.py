@@ -45,7 +45,7 @@ class PositionEmbeddingLearned(nn.Module):
         self.dense1 = Dense(num_pos_feats, num_pos_feats, dtype=dtype)
 
     def forward(self, xyz):
-        return self.dense1(torch.relu(self.bn0(self.dense0(xyz))))
+        return self.dense1(self.bn0(self.dense0(xyz), relu=True))
 
 
 def fps_sample(xyz, features, num_proposal):
@@ -92,8 +92,8 @@ class PredictHead(nn.Module):
         nh, ns = self.num_heading_bin, self.num_size_cluster
         net = features
         for i in range(2):
-            net = torch.relu(getattr(self, f"bn{i}")(
-                getattr(self, f"dense{i}")(net)))
+            net = getattr(self, f"bn{i}")(getattr(self, f"dense{i}")(net),
+                                          relu=True)
         # f32 (or f64 in the parity tests), as the JAX heads
         net = net.to(torch.promote_types(net.dtype, torch.float32))
         objectness_scores = self.objectness(net)  # (B, K, 1)

@@ -70,8 +70,8 @@ class _ConvBNStack(nn.Module):
 
     def forward(self, x):
         for i in range(self.num):
-            x = getattr(self, f"bn{i}")(getattr(self, f"dense{i}")(x))
-            x = torch.relu(x)
+            x = getattr(self, f"bn{i}")(getattr(self, f"dense{i}")(x),
+                                        relu=True)
         return x if self.out is None else self.out(x)
 
 

@@ -69,8 +69,8 @@ class SharedMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num):
-            x = getattr(self, f"bn{i}")(getattr(self, f"dense{i}")(x))
-            x = torch.relu(x)
+            x = getattr(self, f"bn{i}")(getattr(self, f"dense{i}")(x),
+                                        relu=True)
         return x
 
 
@@ -94,6 +94,6 @@ class PointwiseMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num):
-            x = getattr(self, f"bn{i}")(getattr(self, f"dense{i}")(x))
-            x = torch.relu(x)
+            x = getattr(self, f"bn{i}")(getattr(self, f"dense{i}")(x),
+                                        relu=True)
         return self.out(x)

@@ -45,7 +45,17 @@ gated on two steps from one state giving bitwise-equal parameters.
    paths' shapes too: every call of VoteNet's training forward and
    GroupFree3D's SA1 on the first 4 of the 8 rows (a rank's share), each
    record tagged with those paths; every kernel must have such a record.
-   Every wrapper raises on bfloat16 and float16 inputs without launching.
+   Every wrapper of K1-K4 raises on bfloat16 and float16 inputs without
+   launching. ``[bn_relu]``: the eval-mode BatchNorm and ReLU kernel at
+   every (rows, C) that the two serving forwards give it (VoteNet B=8,
+   N=40000; GroupFree3D B=32, N=50000: every BatchNorm of both models
+   launches it once), on a ragged row count and at C = 288, on inputs
+   holding NaN, +-inf and -0, in float32 and (VoteNet's shapes, the edges)
+   bfloat16: bitwise the torch sequence (BatchNorm, then torch.relu); each
+   shape timed against the plain sequence and its bytes at 3.35 TB/s
+   (SA1's of both models, the serving forwards' sums, SA1 in bfloat16).
+   Its launches count on every path: BN_PER_FORWARD a forward times the
+   path's evaluation forwards, none on a training step.
    Kernel, plain and library times are medians of CUDA events, with the
    host's launches queued ahead of the device so that they time device
    work; the plain and library backwards of the grouping run under the
@@ -361,6 +371,15 @@ PER_FORWARD = {"plain": (5, 5, 5), "da": (5, 5, 5), "da_jitter": (5, 6, 6),
                "gf_da_jitter": (4, 5, 5), "boxnet": (5, 5, 5),
                "da_jitter2": (5, 6, 6), "cam": (4, 4, 4),
                "random": (4, 5, 5), "da_random": (4, 5, 5)}
+# BatchNorms a forward of each graph, every one a BatchNorm -> ReLU pair:
+# an eval forward with grad off launches the bn_relu kernel once for each,
+# a train-mode forward (training, BN recalibration) never. GroupFree3D's
+# graphs add 4 a decoder layer (`bn_per_forward`): two position embeddings
+# and a box head of two
+BN_PER_FORWARD = {"plain": 23, "da": 27, "da_jitter": 31, "gf": 20,
+                  "gf_da": 24, "gf_da_jitter": 26, "boxnet": 21,
+                  "da_jitter2": 29, "cam": 12, "random": 23,
+                  "da_random": 27}
 BACKWARDS_PER_STEP = {"plain": 4, "da": 8, "da_jitter": 9, "gf": 3,
                       "gf_da": 6, "gf_da_jitter": 7, "boxnet": 4,
                       "da_jitter2": 9, "cam": 0, "random": 4,
@@ -1488,6 +1507,161 @@ def check_determinism(label, model, opt, run):
             " bitwise between two steps from one state")
 
 
+def bn_relu_shapes(model, inputs) -> list:
+    """The (rows, C) of each launch of the eval-mode BatchNorm and ReLU
+    kernel in one forward of `model` on `inputs` with grad off, in order.
+    Every BatchNorm of the model must launch it once."""
+    import torch
+
+    from backtoreality_tpu_torch.nn import BatchNorm
+    from backtoreality_tpu_torch.ops import bn_relu
+
+    shapes, launch = [], bn_relu.bn_relu
+
+    def logged(x, mean, inv, bias):
+        shapes.append((x.numel() // x.shape[-1], x.shape[-1]))
+        return launch(x, mean, inv, bias)
+
+    launches = bn_relu.KERNEL.launches
+    bn_relu.bn_relu = logged
+    try:
+        with torch.inference_mode():
+            model(*inputs)
+    finally:
+        bn_relu.bn_relu = launch
+    layers = sum(isinstance(m, BatchNorm) for m in model.modules())
+    launched = bn_relu.KERNEL.launches - launches
+    require(len(shapes) == layers == launched, f"bn_relu: {launched}"
+            f" launches ({len(shapes)} calls) in a forward of a model of"
+            f" {layers} BatchNorms")
+    return shapes
+
+
+def check_bn_relu(label, rows, c, reps, device, dtype=None):
+    """The kernel on a (rows, C) x of `dtype` (float32 by default, or
+    bfloat16) against the torch sequence of an eval-mode BatchNorm with
+    the statistics, scale and shift drawn here, then torch.relu, as
+    BatchNorm runs it off the card: bitwise equal, on inputs holding NaN,
+    +-inf, -0 and elements equal to the mean (a zero before the scale, -0
+    where the scale is negative and the shift -0). With `reps`, the
+    kernel's and the sequence's median times (CUDA events, launches
+    queued ahead) and the bytes bound."""
+    import torch
+
+    from backtoreality_tpu_torch.nn import BatchNorm
+    from backtoreality_tpu_torch.ops import bn_relu
+
+    dtype = dtype or torch.float32
+    g = torch.Generator(device=device).manual_seed(rows * 1000 + c)
+    bn = BatchNorm(c).to(device).eval()
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.randn(c, generator=g, device=device))
+        bn.running_mean[0] = bn.running_mean[0].to(dtype).float()
+        bn.running_var.copy_(torch.rand(c, generator=g, device=device)
+                             + 0.05)
+        bn.weight.copy_(torch.randn(c, generator=g, device=device))
+        bn.bias.copy_(torch.randn(c, generator=g, device=device))
+        bn.weight[0] = -1.5
+        bn.bias[0] = -0.0
+    x = torch.randn(rows, c, generator=g, device=device) * 3
+    x[:, 0] = bn.running_mean[0]
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0,
+                            0.0], device=device)
+    k = min(special.numel(), x.numel())
+    x.view(-1)[:k] = special[:k]
+    x.view(-1)[-k:] = special[:k]
+    x = x.to(dtype)
+    with torch.inference_mode():
+        inv = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+        mean, bias = bn.running_mean, bn.bias.detach()
+
+        def plain():
+            return torch.relu(((x.float() - mean) * inv + bias).to(dtype))
+
+        want = plain()
+        launches = bn_relu.KERNEL.launches
+        got = bn(x, relu=True)
+    require(bn_relu.KERNEL.launches == launches + 1,
+            f"bn_relu {label}: the eval forward with grad off did not"
+            " launch the kernel")
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    same = got.dtype == dtype and torch.equal(got.view(ints), want.view(ints))
+    require(same, f"bn_relu {label} ({rows}, {c}) {dtype}: not bitwise the"
+            " torch sequence")
+    rec = {"label": label, "rows": rows, "c": c, "dtype": str(dtype),
+           "max_abs_err": 0.0}
+    if reps:
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: bn_relu.bn_relu(x, mean, inv, bias),
+                         reps=reps, warmup=2, ahead=True)
+            plain_ms = cuda_ms(plain, reps=reps, warmup=2, ahead=True)
+        bound, by = bound_ms(0, 2 * rows * c * x.element_size() + 4 * 3 * c)
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   roofline=bound / ms)
+        print(f"  {label} ({rows}, {c}) {dtype}: {ms:.4f} ms, plain"
+              f" {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}),"
+              f" {bound / ms:.1%} of it; bitwise equal")
+    return rec
+
+
+def bn_relu_phase(model, pc, gf_scans, cfg, device):
+    """``[bn_relu]``: the shapes of both serving forwards (VoteNet: `model`
+    on `pc`; GroupFree3D at its CLI defaults on the GF fixture's first 8
+    scans four times, B=32) each checked once (timed, each shape's ms
+    counted as often as a forward runs it), SA1's widths timed, and the
+    edge shapes checked; then VoteNet's shapes and the edges in bfloat16
+    (``--bf16``), SA1's timed. Returns (records, summary)."""
+    import torch
+
+    from backtoreality_tpu_torch.train import groupfree
+
+    torch.manual_seed(0)
+    gf = groupfree.build_model(gf_flags(), cfg).to(device).eval()
+    gf_pc = gf_first_batch(gf_scans, cfg, use_height=False)["point_clouds"]
+    gf_pc = torch.cat([gf_pc] * 4)
+    forwards = {"serving": bn_relu_shapes(model, (pc,)),
+                "gf_serving_b32": bn_relu_shapes(gf, (gf_pc,))}
+    del gf, gf_pc
+    print("[bn_relu] eval BatchNorm + ReLU kernel vs the torch sequence"
+          " (median of CUDA events)")
+    records, timed = [], {}
+    for path, shapes in forwards.items():
+        print(f"  {path}: {len(shapes)} launches a forward")
+        for rows, c in sorted(set(shapes), reverse=True):
+            if (rows, c) not in timed:
+                timed[rows, c] = check_bn_relu(f"{path}", rows, c, 10,
+                                               device)
+                records.append(timed[rows, c])
+    edges = (("ragged", 1000003, 64), ("ragged_c288", 1009, 288),
+             ("one_row", 1, 4), ("c_4", 7, 4), ("c_12", 333, 12))
+    for label, rows, c in edges:
+        records.append(check_bn_relu(label, rows, c, 0, device))
+    # --bf16: the same shapes with a bfloat16 x, SA1's two widths timed
+    sa1 = sorted(set(forwards["serving"]), reverse=True)[:2]
+    for rows, c in sorted(set(forwards["serving"]), reverse=True):
+        records.append(check_bn_relu("serving_bf16", rows, c,
+                                     10 if (rows, c) in sa1 else 0, device,
+                                     torch.bfloat16))
+    for label, rows, c in edges:
+        records.append(check_bn_relu(f"{label}_bf16", rows, c, 0, device,
+                                     torch.bfloat16))
+    summary = {}
+    for path, shapes in forwards.items():
+        summary[path] = {
+            "launches": len(shapes),
+            "ms": sum(timed[s]["ms"] for s in shapes),
+            "plain_ms": sum(timed[s]["plain_ms"] for s in shapes),
+            "bound_ms": sum(timed[s]["bound_ms"] for s in shapes)}
+        summary[path]["roofline"] = (summary[path]["bound_ms"]
+                                     / summary[path]["ms"])
+        print(f"  {path} forward: {summary[path]['ms']:.4f} ms over"
+              f" {len(shapes)} launches, plain"
+              f" {summary[path]['plain_ms']:.4f} ms, bound"
+              f" {summary[path]['bound_ms']:.4f} ms"
+              f" ({summary[path]['roofline']:.1%})")
+    return records, summary
+
+
 def reset(counters):
     for k in counters:
         k.launches = 0
@@ -1496,9 +1670,10 @@ def reset(counters):
 
 def read_counts(counters) -> dict:
     """The launch counters by name (counters: FPS, ball query, grouping,
-    fused grouping, exact ball query)."""
-    fps_k, bq_k, group_k, localize_k, exact_k = counters
+    fused grouping, exact ball query, eval BatchNorm + ReLU)."""
+    fps_k, bq_k, group_k, localize_k, exact_k, bn_k = counters
     return {"fps": fps_k.launches, "ball_query": bq_k.launches,
+            "bn_relu": bn_k.launches,
             "ball_query_exact": exact_k.launches,
             "group_stratified": group_k.launches,
             "group_stratified_backward": group_k.backward_launches,
@@ -1507,20 +1682,31 @@ def read_counts(counters) -> dict:
                 localize_k.backward_launches}
 
 
-def check_counts(label, launches, kind, forwards, steps):
+def bn_per_forward(kind, decoder_layers=6):
+    """The bn_relu kernel's launches in an eval forward of graph `kind`
+    (GroupFree3D's with `decoder_layers`, 6 at its CLI defaults)."""
+    return BN_PER_FORWARD[kind] + 4 * decoder_layers * kind.startswith("gf")
+
+
+def check_counts(label, launches, kind, forwards, steps, evals=0,
+                 decoder_layers=6):
     """Launches on a path against the model graph's counts: `forwards`
-    forwards (a DA step runs two), `steps` train steps."""
+    forwards (a DA step runs two), `steps` train steps, `evals` of the
+    forwards in eval mode with grad off (GroupFree3D's with
+    `decoder_layers`)."""
     want = dict(zip(("fps", "ball_query", "group_localize_stratified"),
                     (n * forwards for n in PER_FORWARD[kind])))
     want["group_stratified"] = want["group_localize_stratified"]
     want["ball_query_exact"] = 0
+    want["bn_relu"] = bn_per_forward(kind, decoder_layers) * evals
     backward = BACKWARDS_PER_STEP[kind] * steps
     want["group_stratified_backward"] = backward
     want["group_localize_stratified_backward"] = backward
     for name, n in want.items():
         require(launches[name] == n,
                 f"{label}: {name} launched {launches[name]} times, expected"
-                f" {n} ({forwards} forwards, {steps} steps)")
+                f" {n} ({forwards} forwards, {steps} steps, {evals}"
+                " evaluation forwards)")
 
 
 def train_phase(scans, tmp, cfg, counters, header):
@@ -1553,7 +1739,8 @@ def train_phase(scans, tmp, cfg, counters, header):
     print(f"[training path] votenet_fsb.main: {steps} steps + one"
           f" evaluation over {NUM_SCANS} scans in {train_s:.1f} s;"
           f" launches {launches}")
-    check_counts("training", launches, "plain", forwards, steps)
+    check_counts("training", launches, "plain", forwards, steps,
+                 math.ceil(NUM_SCANS / B))
     rows = [json.loads(line) for line in
             (log / "metrics.jsonl").read_text().splitlines()]
     losses = [r["loss"] for r in rows if "loss" in r]
@@ -1655,7 +1842,7 @@ def recipe_phase(scans, virtual, tmp, counters):
         print(f"[training path: {recipe}] votenet_{recipe}.main: {steps}"
               f" steps + one evaluation in {secs:.1f} s; launches"
               f" {launches[recipe]}")
-        check_counts(recipe, launches[recipe], kind, forwards, steps)
+        check_counts(recipe, launches[recipe], kind, forwards, steps, evals)
         rows = [json.loads(line) for line in
                 (log / "metrics.jsonl").read_text().splitlines()]
         losses = [r["loss"] for r in rows if "loss" in r]
@@ -1823,7 +2010,7 @@ def random_sampling_phase(scans, virtual, tmp, counters):
         shapes[name] = shape_log.shapes
         da = kind == "da_random"
         forwards = (2 * steps if da else steps) + evals
-        check_counts(name, launches[name], kind, forwards, steps)
+        check_counts(name, launches[name], kind, forwards, steps, evals)
         train = [inds for training, inds in seen if training]
         evaluation = [inds for training, inds in seen if not training]
         keys = ([(seed, i, d) for i in range(steps) for d in (0, 1)] if da
@@ -1880,7 +2067,8 @@ def jitter_diag_phase(scans, tmp, cfg, counters, header):
     secs = time.perf_counter() - t0
     launches = read_counts(counters)
     batches = NUM_SCANS // flags["batch_size"]  # the tool drops a remainder
-    check_counts("jitter_diag", launches, "da_jitter", batches, 0)
+    check_counts("jitter_diag", launches, "da_jitter", batches, 0,
+                 batches)
     ds = DetectionDataset(cfg, scans, split="all",
                           num_points=flags["num_point"], use_height=True,
                           center_jitter=flags["center_jitter"])
@@ -2050,7 +2238,8 @@ def bf16_phase(scans, tmp, cfg, counters, header, f32, fps, bq, grouping):
           f" {steps} steps, {RECAL_BATCHES} recalibration batches and one"
           f" evaluation in {secs:.1f} s; launches {launches}")
     check_counts("fsb --bf16", launches, "plain",
-                 steps + RECAL_BATCHES + math.ceil(NUM_SCANS / B), steps)
+                 steps + RECAL_BATCHES + math.ceil(NUM_SCANS / B), steps,
+                 math.ceil(NUM_SCANS / B))
     rows = [json.loads(line) for line in
             (log / "metrics.jsonl").read_text().splitlines()]
     losses = [r["loss"] for r in rows if "loss" in r]
@@ -2114,7 +2303,8 @@ def gf_bf16_phase(scans, tmp, cfg, counters, header, f32, bq, grouping):
           f" steps, {RECAL_BATCHES} recalibration batches and one evaluation"
           f" in {secs:.1f} s; launches {launches}")
     check_counts("gf_fsb --bf16", launches, "gf",
-                 steps + RECAL_BATCHES + math.ceil(NUM_SCANS / B), steps)
+                 steps + RECAL_BATCHES + math.ceil(NUM_SCANS / B), steps,
+                 math.ceil(NUM_SCANS / B))
     rows = [json.loads(line) for line in
             (log / "metrics.jsonl").read_text().splitlines()]
     losses = [r["loss"] for r in rows if "loss" in r]
@@ -2153,7 +2343,7 @@ def gate_phase(tmp, counters):
             "8192", "--device", "cuda"])
     secs = time.perf_counter() - t0
     check_counts("checkpoint gate", read_counts(counters), "plain",
-                 3 * math.ceil(100 / 8), 0)
+                 3 * math.ceil(100 / 8), 0, 3 * math.ceil(100 / 8))
     print(f"[checkpoint gate] subset FPS 8192: evaluate.main, 3 seeds over"
           f" 100 scans, in {secs:.1f} s; {matching.native} calls of the"
           " native IoU")
@@ -2294,7 +2484,8 @@ def gate_bf16_phase(val, tmp, counters, lap):
                 "--fps_candidates", "8192", "--device", "cuda"])
         secs = time.perf_counter() - t0
         check_counts(label, read_counts(counters), "plain",
-                     RECAL_BATCHES + 3 * math.ceil(100 / 8), 0)
+                     RECAL_BATCHES + 3 * math.ceil(100 / 8), 0,
+                     3 * math.ceil(100 / 8))
         print(f"[{label}] --bf16 --f32_tail {tail}, {RECAL_BATCHES}"
               f" recalibration batches, 3 seeds over 100 scans, in"
               f" {secs:.1f} s; {matching.native} calls of the native IoU")
@@ -2532,7 +2723,7 @@ def model_surface_phase(scans, virtual, cfg, counters, header, fps, bq,
             f"boxnet: losses {losses}, or the eval forward's centres")
     print(f"[model surface: boxnet] BoxNet + get_loss_boxnet, 2 steps and"
           f" an eval forward: losses {losses}; launches {paths['boxnet']}")
-    check_counts("boxnet", paths["boxnet"], "boxnet", 3, 2)
+    check_counts("boxnet", paths["boxnet"], "boxnet", 3, 2, 1)
     for _ in range(2):
         step(batch, 0.5)
     torch.cuda.reset_peak_memory_stats()
@@ -2636,7 +2827,7 @@ def model_surface_phase(scans, virtual, cfg, counters, header, fps, bq,
     print(f"[model surface: cam] Pointnet2BackboneCam forward B={B} N={N}:"
           f" {cam_ms:.3f} ms (median of 10); launches {paths['cam']}"
           f"  | {header}")
-    check_counts("cam", paths["cam"], "cam", 1, 0)
+    check_counts("cam", paths["cam"], "cam", 1, 0, 1)
     del cam, ep
 
     # surface_variants: the SA/FP variants at VoteNet's SA widths, inputs
@@ -2676,7 +2867,7 @@ def model_surface_phase(scans, virtual, cfg, counters, header, fps, bq,
                                              grads_of, counters))
     paths["surface_variants"] = total
     shapes["surface_variants"] = log.shapes
-    want = dict(fps=5, ball_query=9, ball_query_exact=0,
+    want = dict(fps=5, ball_query=9, ball_query_exact=0, bn_relu=0,
                 group_stratified=9, group_localize_stratified=9,
                 group_stratified_backward=9,
                 group_localize_stratified_backward=9)
@@ -2841,7 +3032,7 @@ def gf_serving_phase(scans, tmp, cfg, counters, header):
     print(f"[serving path: GroupFree3D] evaluate.main --model groupfree over"
           f" {NUM_SCANS} scans in {secs:.1f} s; launches {launches} over"
           f" {batches} batches")
-    check_counts("gf_serving", launches, "gf", batches, 0)
+    check_counts("gf_serving", launches, "gf", batches, 0, batches)
     for (prefix, t), metrics in results.items():
         require(math.isfinite(metrics["mAP"]) and math.isfinite(
             metrics["AR"]), f"GF serving: non-finite mAP @ {t}")
@@ -2899,7 +3090,8 @@ def gf_train_phase(scans, tmp, cfg, counters, header):
         print(f"[training path: {recipe}] {recipe}.main: {steps} steps + one"
               f" evaluation in {secs:.1f} s; launches {launches[recipe]}")
         check_counts(recipe, launches[recipe], "gf",
-                     steps + math.ceil(NUM_SCANS / B), steps)
+                     steps + math.ceil(NUM_SCANS / B), steps,
+                     math.ceil(NUM_SCANS / B))
         rows = [json.loads(line) for line in
                 (log / "metrics.jsonl").read_text().splitlines()]
         losses = [r["loss"] for r in rows if "loss" in r]
@@ -3032,7 +3224,7 @@ def gf_da_phase(scans, virtual, tmp, cfg, counters, header):
               f" {B} + {B} scenes + one evaluation in {secs:.1f} s;"
               f" launches {launches[recipe]}")
         check_counts(recipe, launches[recipe], kind, 2 * steps + evals,
-                     steps)
+                     steps, evals)
         rows = [json.loads(line) for line in
                 (log / "metrics.jsonl").read_text().splitlines()]
         losses = [r["loss"] for r in rows if "loss" in r]
@@ -3155,7 +3347,8 @@ def gf_learning_check(tmp, counters):
     secs = time.perf_counter() - t0
     steps = LEARN_EPOCHS * (len(train) // B)
     check_counts("learning check", read_counts(counters), "gf",
-                 steps + math.ceil(len(val) / B), steps)
+                 steps + math.ceil(len(val) / B), steps,
+                 math.ceil(len(val) / B))
     rows = [json.loads(line) for line in
             (log / "metrics.jsonl").read_text().splitlines()]
     card = {r["step"]: r["loss"] for r in rows if "loss" in r}
@@ -3537,18 +3730,23 @@ def torch_import_phase(tmp):
     return out
 
 
-def check_exact_counts(label, launches, kind, forwards):
+def check_exact_counts(label, launches, kind, forwards, evals,
+                       decoder_layers=6):
     """Launches on an exact-mode path of graph `kind` (PER_FORWARD's):
     FPS and the exact query as many times a forward as the graph's FPS
     and ball query, no stratified ball query and no stratified grouping
-    (the gather is plain PyTorch)."""
+    (the gather is plain PyTorch); the eval BatchNorm + ReLU kernel in
+    the `evals` of the forwards that are evaluations (GroupFree3D's with
+    `decoder_layers`)."""
     want = {k: 0 for k in launches}
     want["fps"] = PER_FORWARD[kind][0] * forwards
     want["ball_query_exact"] = PER_FORWARD[kind][1] * forwards
+    want["bn_relu"] = bn_per_forward(kind, decoder_layers) * evals
     for name, n in want.items():
         require(launches[name] == n,
                 f"{label}: {name} launched {launches[name]} times, expected"
-                f" {n} ({forwards} forwards in exact mode)")
+                f" {n} ({forwards} forwards in exact mode, {evals}"
+                " evaluations)")
 
 
 def exact_serving_phase(scans, gf_scans, inits, cfg, counters, header):
@@ -3588,7 +3786,8 @@ def exact_serving_phase(scans, gf_scans, inits, cfg, counters, header):
         print(f"[serving path: {model_flag} exact] evaluate.main --query_mode"
               f" exact over {NUM_SCANS} scans in {secs:.1f} s; launches"
               f" {launches[path]} over {batches} batches")
-        check_exact_counts(path, launches[path], kind, batches)
+        check_exact_counts(path, launches[path], kind, batches, batches,
+                           decoder_layers=2)
         for (prefix, t), metrics in results.items():
             require(math.isfinite(metrics["mAP"]) and math.isfinite(
                 metrics["AR"]), f"{path}: non-finite mAP @ {t}")
@@ -3718,9 +3917,10 @@ def parity_pairs_phase(tmp, inits, counters, header):
         unported = sorted(k for k in theirs if k not in mine)
         steps = epochs * (40 // B)
         evals = epochs // (mine.get("eval_freq") or mine["val_freq"])
-        fwd = (2 * steps if kind == "br" else steps) + evals * math.ceil(
-            12 / B)
-        check_exact_counts(f"pair {pair}", got, PAIR_GRAPH[pair], fwd)
+        evals *= math.ceil(12 / B)
+        fwd = (2 * steps if kind == "br" else steps) + evals
+        check_exact_counts(f"pair {pair}", got, PAIR_GRAPH[pair], fwd, evals,
+                           decoder_layers=2)
         # the reference loop's history and the JAX leg's metrics, as the
         # report reads them
         ref_dir, jax_dir = root / f"{pair}_ref", root / f"{pair}_jax"
@@ -3852,7 +4052,8 @@ def gf_sweep_phase(scans, root, counters, header):
              (root / "out" / "sweep.jsonl").read_text().splitlines()]
     steps = 2 * 2 * (NUM_SCANS // B)  # two arms of two epochs
     check_counts("gf sweep", launches, "gf",
-                 steps + 2 * math.ceil(NUM_SCANS / B), steps)
+                 steps + 2 * math.ceil(NUM_SCANS / B), steps,
+                 2 * math.ceil(NUM_SCANS / B), decoder_layers=2)
     print(f"[gf sweep] 2 arms x 2 epochs over {NUM_SCANS} scans at"
           f" N=20000 in {secs:.1f} s; launches {launches}  | {header}")
     for rec in lines:
@@ -4242,7 +4443,8 @@ def datagen_br_phase(started, tmp, counters, header):
               f" {sizes[0]} virtual and {sizes[1]} real scenes, {steps}"
               f" steps + one evaluation in {secs:.1f} s; launches"
               f" {launches[path]}")
-        check_counts(path, launches[path], "da", 2 * steps + evals, steps)
+        check_counts(path, launches[path], "da", 2 * steps + evals, steps,
+                     evals)
         rows = [json.loads(line) for line in
                 (log / "metrics.jsonl").read_text().splitlines()]
         losses = [r["loss"] for r in rows if "loss" in r]
@@ -4600,7 +4802,7 @@ def dp_rank(rank, world, address, spec, out_dir):
     import torch
 
     from backtoreality_tpu_torch import parallel
-    from backtoreality_tpu_torch.ops import fps, grouping
+    from backtoreality_tpu_torch.ops import bn_relu, fps, grouping
     from backtoreality_tpu_torch.train.common import make_deterministic
 
     # the module: the package exports its exact query under the same name
@@ -4616,7 +4818,7 @@ def dp_rank(rank, world, address, spec, out_dir):
     try:
         require(name == "gloo", f"two ranks on one card over {name}")
         counters = (fps.KERNEL, ball_query.KERNEL, grouping.KERNEL,
-                    grouping.LOCALIZE, ball_query.EXACT)
+                    grouping.LOCALIZE, ball_query.EXACT, bn_relu.KERNEL)
         out_dir = pathlib.Path(out_dir)
         choices = torch.load(out_dir / "dp_choices.pt", weights_only=False)
         torch.save(dp_steps(spec, counters, choices),
@@ -5157,7 +5359,7 @@ def main() -> int:
     from backtoreality_tpu_torch.data.dataset import DetectionDataset
     from backtoreality_tpu_torch.data.loader import DetectionDataLoader
     from backtoreality_tpu_torch.data.synthetic import write_synthetic_scans
-    from backtoreality_tpu_torch.ops import _build
+    from backtoreality_tpu_torch.ops import _build, bn_relu
     # the module: the package exports its exact query under the same
     # name
     bq = importlib.import_module("backtoreality_tpu_torch.ops.ball_query")
@@ -5173,7 +5375,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     kernels = (fps.KERNEL, bq.KERNEL, grouping.KERNEL)
-    counters = kernels + (grouping.LOCALIZE, bq.EXACT)
+    counters = kernels + (grouping.LOCALIZE, bq.EXACT, bn_relu.KERNEL)
     if args.child:
         run_child(args.child[0], pathlib.Path(args.child[1]), counters,
                   header)
@@ -5189,7 +5391,7 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    logs = _build.build_all(kernels)
+    logs = _build.build_all(kernels + (bn_relu.KERNEL,))
     print(f"[build] {time.perf_counter() - t0:.1f} s")
     lap("build")
     for name, log in logs.items():
@@ -5359,9 +5561,11 @@ def main() -> int:
     group_fwd += gf_group
     local_fwd += gf_local
     local_bwd += gf_local_bwd
+    bn_records, bn_summary = bn_relu_phase(model, pc, gf_scans, cfg, device)
     lap("kernels")
     if args.kernels_only:
         print(json.dumps({"kernels_only": {
+            "bn_relu": bn_records, "bn_relu_forwards": bn_summary,
             "fps": fps_records, "fps_floor_us": {
                 str(k): v for k, v in floor.items()},
             "ball_query": bq_records, "group_stratified": group_fwd,
@@ -5380,7 +5584,7 @@ def main() -> int:
     batches = math.ceil(NUM_SCANS / B)
     print(f"[serving path] evaluate.main over {NUM_SCANS} scans in"
           f" {eval_s:.1f} s; launches {serving} over {batches} batches")
-    check_counts("serving", serving, "plain", batches, 0)
+    check_counts("serving", serving, "plain", batches, 0, batches)
     for (_, t), metrics in results.items():
         require(math.isfinite(metrics["mAP"]) and
                 math.isfinite(metrics["AR"]), f"non-finite mAP @ {t}")
@@ -5614,6 +5818,26 @@ def main() -> int:
     require(exact_paths <= checked, f"ball_query_exact: no check against"
             f" the plain version at {exact_paths - checked}'s shapes")
     kernels_line.append(exact)
+    # the eval BatchNorm + ReLU kernel: its times a VoteNet serving forward;
+    # launched on every path that evaluates (check_counts holds each to
+    # its BatchNorms times its evaluation forwards) and on no other
+    bn_launches = by_path("bn_relu")
+    evaluating = {p for p, n in bn_launches.items() if n}
+    require({"serving", "gf_serving", "serving_exact", "gf_serving_exact",
+             "training", "training_bf16", "gf_fsb_bf16"} <= evaluating
+            and not evaluating & {"mfu_votenet", "mfu_gf",
+                                  "surface_variants", "da_separate",
+                                  "da_jitter2"},
+            f"bn_relu: launched on {sorted(evaluating)}")
+    kernels_line.append({
+        "name": "bn_relu", "route": "cuda",
+        "source": "backtoreality_tpu_torch/csrc/bn_relu.cu",
+        "replaces": bn_relu.KERNEL.replaces,
+        "launches": bn_launches["serving"],
+        "launches_by_path": bn_launches,
+        "max_abs_err": 0.0, **{k: bn_summary["serving"][k] for k in (
+            "ms", "plain_ms", "bound_ms")}, "bound_by": "bytes",
+        "forwards": bn_summary, "per_shape": bn_records})
     print("[seconds] " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
           + f"; total {sum(laps.values()):.1f}")
     print(header)
